@@ -11,8 +11,9 @@ Counterpart of ``tensorfusion_tpu/client/runtime.py``, keeping its names
   is estimated once per argument-shape signature: the reference reads
   XLA's compiled ``cost_analysis``, the port runs ``fn`` once on fake
   tensors (shapes only, no device work) under
-  ``torch.utils.flop_counter.FlopCounterMode``.  The flash kernel is a
-  custom op with a registered FLOP formula, so its work is counted;
+  ``torch.utils.flop_counter.FlopCounterMode``.  The flash kernels are
+  custom ops with registered FLOP formulas, so their work (forward and
+  backward) is counted;
 - a dry bucket makes the launch sleep the limiter's wait hint and retry,
   and a frozen worker blocks at its next launch until thawed;
 - device memory is charged once per signature, as the peak-allocation

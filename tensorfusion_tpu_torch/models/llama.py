@@ -1,28 +1,36 @@
-"""Llama-style decoder-only transformer, serving half: the functional
-PyTorch port of ``tensorfusion_tpu/models/llama.py``.
+"""Llama-style decoder-only transformer: the functional PyTorch port of
+``tensorfusion_tpu/models/llama.py``, serving and training.
 
 Same parameter tree as the reference (``init_params``), with ``[in, out]``
 weights used as ``x @ w``, so a JAX tree converts by a plain copy
 (models/convert.py).  Grouped-query attention with ``attn_impl`` of
-"full" (dense), "flash" (the Hopper kernel of ops/flash_attention.py on
-CUDA tensors) or "chunked" (blockwise, O(T x block) memory).  Serving:
-a preallocated KV cache (optionally int8), batched ``prefill``,
-``decode_step`` and greedy ``generate``.
+"full" (dense), "flash" (the Hopper kernels of ops/flash_attention.py on
+CUDA tensors, forward and backward) or "chunked" (blockwise, O(T x block)
+memory, differentiable).  Serving: a preallocated KV cache (optionally
+int8), batched ``prefill``, ``decode_step`` and greedy ``generate``.
+Training: ``loss_fn`` (logsumexp cross-entropy) and ``make_train_step``
+(AdamW as ``optax.adamw``), with ``remat`` through
+``torch.utils.checkpoint`` where the reference uses ``jax.checkpoint``.
 
-Where the reference is pure (``lax.dynamic_update_slice``), the port
-writes the KV cache in place, which saves a copy of the cache per step;
-``lax.scan`` loops become Python loops.  Training (``loss_fn``,
-``make_train_step``) and sharding come with later slices.
+Where the reference is pure (``lax.dynamic_update_slice``, optax's new
+trees), the port writes the KV cache and the parameters and optimizer
+moments in place, which saves a copy of each per step; ``lax.scan``
+loops become Python loops.  Sharding comes with a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
+# imported before any call, not lazily: the ops register their FLOP
+# formulas on import, and a FlopCounterMode (the client's cost estimate)
+# sees only those registered before it was made
+from ..ops import chunked_attention, flash_attention
 from .quantize import matmul as _mm
 
 
@@ -40,6 +48,9 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16
     attn_impl: str = "full"   # "full" | "flash" | "chunked" ("ring": later)
     attn_block: int = 512     # KV block for attn_impl="chunked"
+    #: recompute each layer's activations in the backward
+    #: (torch.utils.checkpoint) instead of keeping them
+    remat: bool = False
     #: int8 KV cache with per-(token, head) f32 scales
     kv_quant: bool = False
 
@@ -157,12 +168,8 @@ def _attention(config: LlamaConfig, p, x, return_kv: bool = False):
             "attn_impl='ring' (sequence parallelism) comes with the "
             "multi-device slice of the port")
     if config.attn_impl == "flash":
-        from ..ops import flash_attention
-
         out = flash_attention(q, k, v, causal=True)
     elif config.attn_impl == "chunked":
-        from ..ops import chunked_attention
-
         out = chunked_attention(q, k, v, causal=True, block=config.attn_block)
     else:
         scale = hd ** -0.5
@@ -203,9 +210,130 @@ def forward(params: Dict, tokens: torch.Tensor,
     """tokens [B, T] integer -> logits [B, T, vocab] f32."""
     x = params["tok_emb"][tokens.long()]
     for layer in params["layers"]:
-        x = _layer(config, layer, x)
+        if config.remat:
+            x = checkpoint(_layer, config, layer, x, use_reentrant=False)
+        else:
+            x = _layer(config, layer, x)
     x = _rms_norm(x, params["final_norm"], config.norm_eps)
     return _mm(x, params["lm_head"]).float()
+
+
+def loss_fn(params: Dict, batch: Dict, config: LlamaConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` ({"tokens", "targets"}
+    [B, T] integers, optional "mask" [B, T]) as a 0-d f32 tensor.  The
+    logsumexp form never builds the [B, T, vocab] log-probabilities."""
+    logits = forward(params, batch["tokens"], config)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
+    nll = lse - tgt
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
+
+
+# -- training ---------------------------------------------------------------
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a parameter tree in a fixed order (dicts in their
+    insertion order, lists in order)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [x for v in tree for x in _leaves(v)]
+
+
+def _unflatten(tree, leaves):
+    """``tree``'s structure with its tensors taken, in ``_leaves`` order,
+    from the iterable ``leaves``."""
+    it = iter(leaves)
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            return next(it)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return [walk(v) for v in node]
+
+    return walk(tree)
+
+
+def value_and_grad(params: Dict, batch: Dict, config: LlamaConfig
+                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(loss, gradient of every leaf in ``_leaves`` order).  The leaves'
+    ``requires_grad`` is set for the call and restored after it."""
+    leaves = _leaves(params)
+    before = [p.requires_grad for p in leaves]
+    try:
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(params, batch, config)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p, flag in zip(leaves, before):
+            p.requires_grad_(flag)
+    return loss.detach(), list(grads)
+
+
+@torch.no_grad()
+def adamw_update_(params: List[torch.Tensor], grads: List[torch.Tensor],
+                  state: Dict, learning_rate: float, b1: float = 0.9,
+                  b2: float = 0.95, eps: float = 1e-8,
+                  weight_decay: float = 0.1) -> None:
+    """One ``optax.adamw`` step, in place on ``params`` and on the state's
+    moments (lists in ``params`` order) and step count.
+
+    mu = (1-b1)·g + b1·mu; nu = (1-b2)·g² + b2·nu; with the bias
+    corrections c1 = 1-b1^n, c2 = 1-b2^n (n the new count, in f32 and
+    cast to each moment's dtype), p -= lr·((mu/c1) / (sqrt(nu/c2) + eps)
+    + weight_decay·p), on every leaf."""
+    state["count"] += 1
+    c1 = 1 - b1 ** state["count"]
+    c2 = 1 - b2 ** state["count"]
+    for p, g, mu, nu in zip(params, grads, _leaves(state["mu"]),
+                            _leaves(state["nu"])):
+        mu.mul_(b1).add_(g, alpha=1 - b1)
+        nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+        update = (mu / c1.to(mu.dtype)).div_(
+            (nu / c2.to(nu.dtype)).sqrt_().add_(eps))
+        p.sub_(update.add_(p, alpha=weight_decay), alpha=learning_rate)
+
+
+def make_train_step(config: LlamaConfig, learning_rate: float = 3e-4,
+                    device: DeviceLike = "cuda") -> Tuple[Callable, Callable]:
+    """Returns (train_step, init_opt_state), the reference's pair:
+    ``train_step(params, opt_state, batch) -> (params, opt_state, loss)``,
+    an AdamW step as ``optax.adamw(lr, b1=0.9, b2=0.95,
+    weight_decay=0.1)`` (eps 1e-8, bias correction, decoupled decay on
+    every leaf, moments in the parameters' dtype).
+
+    The step updates ``params`` and ``opt_state`` in place and returns the
+    same objects: at Llama-3-8B width a fresh copy of every parameter and
+    moment would cost about 17 GB.  It is a function of its arguments
+    alone (the state is a plain tree, no ``torch.optim`` object), so the
+    client runtime can estimate it on fake copies of them, and it returns
+    the loss as a 0-d tensor, with no host sync.  The step runs on
+    ``device``, where the parameters must live."""
+    dev = resolve_device(device)
+
+    def init_opt_state(params: Dict) -> Dict:
+        return {"count": torch.zeros((), dtype=torch.int32,
+                                     device=params["tok_emb"].device),
+                "mu": _unflatten(params, map(torch.zeros_like, _leaves(params))),
+                "nu": _unflatten(params, map(torch.zeros_like, _leaves(params)))}
+
+    def train_step(params: Dict, opt_state: Dict, batch: Dict):
+        if params["tok_emb"].device.type != dev.type:
+            raise ValueError(f"parameters are on {params['tok_emb'].device}, "
+                             f"the train step was made for {dev}")
+        loss, grads = value_and_grad(params, batch, config)
+        adamw_update_(_leaves(params), grads, opt_state, learning_rate)
+        return params, opt_state, loss
+
+    return train_step, init_opt_state
 
 
 # -- serving: KV-cache decode + generation ----------------------------------

@@ -6,12 +6,15 @@ import dataclasses
 from typing import Callable, List
 
 from .chunked_attention import chunked_attention
-from .flash_attention import (flash_attention, flash_attention_fwd,
-                              flash_attention_plain, flash_fwd_cuda)
+from .flash_attention import (flash_attention, flash_attention_bwd_plain,
+                              flash_attention_fwd, flash_attention_plain,
+                              flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+                              flash_fwd_cuda)
 
 __all__ = ["KERNELS", "Kernel", "chunked_attention", "flash_attention",
-           "flash_attention_fwd", "flash_attention_plain", "flash_fwd_cuda",
-           "launch_counts", "reset_launch_counts"]
+           "flash_attention_bwd_plain", "flash_attention_fwd",
+           "flash_attention_plain", "flash_bwd_dkv_cuda", "flash_bwd_dq_cuda",
+           "flash_fwd_cuda", "launch_counts", "reset_launch_counts"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +34,14 @@ KERNELS: List[Kernel] = [
            source="tensorfusion_tpu_torch/ops/csrc/flash_attn_fwd.cu",
            replaces="tensorfusion_tpu/ops/flash_attention.py:60",
            wrapper=flash_fwd_cuda),
+    Kernel(name="flash_attn_bwd_dq", route="cuda",
+           source="tensorfusion_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+           replaces="tensorfusion_tpu/ops/flash_attention.py:158",
+           wrapper=flash_bwd_dq_cuda),
+    Kernel(name="flash_attn_bwd_dkv", route="cuda",
+           source="tensorfusion_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+           replaces="tensorfusion_tpu/ops/flash_attention.py:202",
+           wrapper=flash_bwd_dkv_cuda),
 ]
 
 

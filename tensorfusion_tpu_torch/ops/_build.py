@@ -28,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: library name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "flash_attn_fwd": "flash_attn_fwd.cu",
+    "flash_attn_bwd": "flash_attn_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

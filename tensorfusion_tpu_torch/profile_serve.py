@@ -6,7 +6,8 @@ Builds Llama-3-8B random weights (full width and depth, flash attention),
 runs one request through ``generate`` to warm up, then traces the prefill
 and eight decode steps with ``torch.profiler``.  Prints one JSON line per phase:
 wall time, device busy time (the sum of CUDA kernel time), the device's
-idle share, kernel launches, and the kernels that took the most time.
+idle share, kernel launches, the kernels that took the most time, and the
+device time grouped by kind (``GROUPS``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,22 @@ from .models import llama
 STEPS = 8     # decode steps traced
 TOP = 8       # kernels listed per phase
 
+#: device-time groups, by a substring of the kernel's name: the attention
+#: kernels of this package, the matrix products, and (matching none of
+#: these) "other"; the first match wins
+GROUPS = (
+    ("flash_fwd", "flash_fwd_"),
+    ("flash_bwd_dq", "dq_bf16_kernel"),
+    ("flash_bwd_dkv", "dkv_bf16_kernel"),
+    ("matmul", "gemm"),
+    ("matmul", "nvjet"),
+    ("matmul", "cutlass"),
+)
+
+
+def _group(name: str) -> str:
+    return next((group for group, key in GROUPS if key in name), "other")
+
 
 def _trace(fn):
     torch.cuda.synchronize()
@@ -35,10 +52,15 @@ def _trace(fn):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    groups: dict = {}
+    for e in kernels:
+        g = groups.setdefault(_group(e.key), {"ms": 0.0, "launches": 0})
+        g["ms"] += e.self_device_time_total / 1e3
+        g["launches"] += e.count
     kernels.sort(key=lambda e: -e.self_device_time_total)
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
             "idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
-            "kernel_launches": sum(e.count for e in kernels),
+            "kernel_launches": sum(e.count for e in kernels), "groups": groups,
             "top": [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3,
                      "count": e.count} for e in kernels[:TOP]]}
 

@@ -217,3 +217,29 @@ def test_signature_tells_shapes_apart():
     assert sig(((a,), {})) != sig(((b,), {}))
     assert sig(((a, 4), {})) != sig(((a, 5), {}))
     assert sig(((a,), {})) == sig(((torch.ones(2, 3),), {}))
+
+
+def test_first_estimate_in_a_fresh_process_counts_the_attention_ops():
+    """A fresh process whose first flash call comes inside the estimate
+    counts the custom ops' formulas on the first estimate as on the
+    second: the counter sees only the formulas registered before it was
+    made, so the ops must not be first imported inside the call."""
+    import subprocess
+    import sys
+
+    code = (
+        "import dataclasses, torch\n"
+        "from tensorfusion_tpu_torch.client.runtime import estimate_flops\n"
+        "from tensorfusion_tpu_torch.models import llama\n"
+        "cfg = llama.LlamaConfig.tiny('flash')\n"
+        "p = llama.init_params(cfg, torch.Generator().manual_seed(0), device='cpu')\n"
+        "toks = torch.zeros((1, 128), dtype=torch.long)\n"
+        "fn = lambda p, t: llama.forward(p, t, cfg)\n"
+        "print(estimate_flops(fn, (p, toks), {}), estimate_flops(fn, (p, toks), {}))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=240, cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert r.returncode == 0, r.stderr[-2000:]
+    first, second = map(int, r.stdout.split())
+    # flash forward: 4·BH·T²·D halved by the causal skip, per layer
+    attention = 2 * 4 * 128 * 128 * 16 * 2
+    assert first == second and first > attention

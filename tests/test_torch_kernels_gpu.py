@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 from tensorfusion_tpu_torch import ops  # noqa: E402
 from tensorfusion_tpu_torch.models import llama  # noqa: E402
 from tensorfusion_tpu_torch.ops.flash_attention import (  # noqa: E402
-    flash_attention_plain, flash_fwd_cuda)
+    flash_attention, flash_attention_bwd_plain, flash_attention_plain,
+    flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
 
 pytestmark = pytest.mark.gpu
 
@@ -60,6 +61,102 @@ def test_kernel_refuses_what_it_does_not_take(gen):
     q, k, v = _qkv(gen, (2, 64, 64), torch.float16)
     with pytest.raises(ValueError, match="bf16 or f32"):
         flash_fwd_cuda(q, k, v, 1.0, True)
+
+
+def _bwd_inputs(gen, bh, t, d, dtype, causal):
+    """q, k, v, dO random; lse and Δ from the plain forward."""
+    q, k, v = _qkv(gen, (bh, t, d), dtype)
+    do = torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype)
+    out, lse = flash_attention_plain(q, k, v, d ** -0.5, causal)
+    delta = (do.float() * out.float()).sum(-1)
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,d", [(100, 16), (128, 32), (300, 64), (512, 128)])
+def test_backward_kernels_match_plain(gen, dtype, causal, t, d):
+    """dq and dk/dv against the plain backward, at ragged (100, 300) and
+    tiled T; the tolerances are chip_smoke.py's: f32 rtol 2e-4 atol 2e-4,
+    bf16 mean|err| / mean|ref| < 2e-2 per output."""
+    args = _bwd_inputs(gen, 3, t, d, dtype, causal)
+    scale = d ** -0.5
+    before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    dq = flash_bwd_dq_cuda(*args, scale, causal)
+    dk, dv = flash_bwd_dkv_cuda(*args, scale, causal)
+    refs = flash_attention_bwd_plain(*args, scale, causal)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.isfinite(got).all(), name
+        if dtype == torch.bfloat16:
+            rel = ((got.float() - ref.float()).abs().mean()
+                   / ref.float().abs().mean()).item()
+            assert rel < 2e-2, f"{name}: mean relative error {rel}"
+        else:
+            torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_autograd_through_the_kernels_matches_plain(gen, causal):
+    """[B, H, T, D] through flash_attention's autograd rule (forward, dq
+    and dkv kernels) against autograd through the plain version, f32."""
+    q, k, v = _qkv(gen, (2, 3, 256, 64), torch.float32)
+    w = torch.sin(torch.arange(q.numel(), device="cuda",
+                               dtype=torch.float32)).reshape(q.shape)
+
+    def grads(backend):
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = flash_attention(*xs, causal=causal, backend=backend)
+        return torch.autograd.grad((out * w).sum(), xs)
+
+    ops.reset_launch_counts()
+    got = grads("cuda")
+    assert ops.launch_counts() == {"flash_attn_fwd": 1, "flash_attn_bwd_dq": 1,
+                                   "flash_attn_bwd_dkv": 1}
+    for g, r in zip(got, grads("plain")):
+        torch.testing.assert_close(g, r, rtol=2e-4, atol=2e-4)
+
+
+def test_f32_train_step_gradients_match_full(gen):
+    """A train step's gradients through the kernels against the dense
+    attention path, f32: max|Δ| <= 1e-4 · max|full| per leaf."""
+    cfg = llama.LlamaConfig(vocab_size=1024, dim=256, n_layers=2, n_heads=2,
+                            n_kv_heads=1, ffn_dim=512, dtype=torch.float32,
+                            attn_impl="flash")
+    params = llama.init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks, "targets": toks.roll(-1, dims=1)}
+    ops.reset_launch_counts()
+    loss, got = llama.value_and_grad(params, batch, cfg)
+    assert ops.launch_counts()["flash_attn_bwd_dq"] == cfg.n_layers
+    assert ops.launch_counts()["flash_attn_bwd_dkv"] == cfg.n_layers
+    loss_f, want = llama.value_and_grad(params, batch,
+                                        dataclasses.replace(cfg, attn_impl="full"))
+    torch.testing.assert_close(loss, loss_f, rtol=1e-5, atol=0)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+    step, init = llama.make_train_step(cfg)
+    state = init(params)
+    before = params["lm_head"].clone()
+    _, _, loss2 = step(params, state, batch)
+    assert torch.isfinite(loss2) and not torch.equal(params["lm_head"], before)
+
+
+def test_backward_kernels_refuse_what_they_do_not_take(gen):
+    args = _bwd_inputs(gen, 2, 64, 64, torch.bfloat16, True)
+    bad_d = _bwd_inputs(gen, 2, 64, 48, torch.bfloat16, True)
+    bad_dtype = [x.half() if x.dtype == torch.bfloat16 else x for x in args]
+    for fn in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="head_dim"):
+            fn(*bad_d, 1.0, True)
+        with pytest.raises(ValueError, match="bf16 or f32"):
+            fn(*bad_dtype, 1.0, True)
+        with pytest.raises(ValueError, match="lse and delta"):
+            fn(*args[:4], args[4][:, :32], args[5], 1.0, True)
 
 
 def test_flash_generate_matches_full_in_f32(gen):
