@@ -6,9 +6,11 @@ NVIDIA H100.
 
 Run from the root of a checkout on a machine with one Hopper card, nvcc
 and make.  It builds the kernels (flash forward, flash backward) and
-libtpf_limiter.so from the checkout, holds every kernel against its plain
-PyTorch version on the card, then drives the port's two paths at
-Llama-3-8B width (random weights from fixed seeds), each through the
+libtpf_limiter.so from the checkout (failing if ptxas reports a spill),
+holds every kernel against its plain PyTorch version on the card and
+times it at the main path's shape and at a long one, then drives the
+port's two paths at Llama-3-8B width (random weights from fixed seeds),
+each through the
 metered client with the kernel launch counts set to 0 just before it and
 read just after: serving (greedy requests, 32 layers) and training
 (AdamW steps, 8 layers, batch 4 x 1024).  It checks the answers of both
@@ -44,6 +46,7 @@ STEPS = 32
 TRAIN_LAYERS = 8                           # AdamW state of 32 would not fit
 TRAIN_SHAPE = (4, 1024)                    # train batch x sequence
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+LONG_SHAPE = (32, 4096, 128)               # [B*H, T, D]: more tiles per block
 
 
 def emit(phase: str, **fields) -> None:
@@ -83,8 +86,10 @@ def phase_device(torch, build, hardware):
     return name, smi
 
 
-def phase_build(build):
-    """The kernels (one nvcc each, in parallel) and the limiter, together."""
+def phase_build(torch, build, fa):
+    """The kernels (one nvcc each, in parallel) and the limiter, together;
+    then what each kernel holds (ptxas, dynamic shared memory) and what a
+    launch's tensor maps cost on the host."""
     t0 = time.perf_counter()
     make = subprocess.Popen(["make", "-C", str(REPO / "native"),
                              "build/libtpf_limiter.so"],
@@ -104,27 +109,53 @@ def phase_build(build):
         waiter.join()
     if make.returncode != 0:
         raise RuntimeError(f"libtpf_limiter.so did not build:\n{limiter['log']}")
-    ptxas = {n: [l.strip() for l in build.ptxas_report(n).splitlines()
-                 if "registers" in l or "spill" in l]
-             for n in build.SOURCES}
+    ptxas = {n: build.ptxas_summary(build.ptxas_report(n)) for n in build.SOURCES}
+    spills = {f"{n}: {k}": v["spill_bytes"] for n, kernels in ptxas.items()
+              for k, v in kernels.items() if v["spill_bytes"]}
     emit("build", kernels_s=kernel_s, limiter_s=limiter["s"],
          libraries=[str(build.library_path(n).relative_to(REPO))
-                    for n in build.SOURCES], ptxas=ptxas)
+                    for n in build.SOURCES], ptxas=ptxas,
+         dynamic_smem_bf16=_dynamic_smem(fa),
+         tensor_map_encode_us=_encode_us(torch, fa))
+    if spills:
+        raise RuntimeError(f"kernels spill registers (bytes): {spills}")
     return REPO / "native" / "build" / "libtpf_limiter.so"
+
+
+def _dynamic_smem(fa):
+    """Dynamic shared memory of one block of each bf16 kernel per head
+    dim, as the libraries report it (ptxas counts static memory only)."""
+    fwd, bwd = fa._library("flash_attn_fwd"), fa._library("flash_attn_bwd")
+    dims = (16, 32, 64, 128)
+    return {"flash_attn_fwd": {d: fwd.tpf_flash_attn_fwd_smem(d) for d in dims},
+            "flash_attn_bwd_dq": {d: bwd.tpf_flash_attn_bwd_smem(d, 0) for d in dims},
+            "flash_attn_bwd_dkv": {d: bwd.tpf_flash_attn_bwd_smem(d, 1) for d in dims}}
+
+
+def _encode_us(torch, fa):
+    """Host microseconds of one tensor-map encode of a [128, 1024, 128]
+    bf16 tensor, the mean of 1000 (a forward launch encodes 3, a dK/dV
+    launch 4)."""
+    x = torch.empty((128, 1024, 128), dtype=torch.bfloat16, device="cuda")
+    ns = fa._library("flash_attn_fwd").tpf_tensor_map_encode_ns(x.data_ptr(), 128, 1024, 128, 1000)
+    if ns < 0:
+        raise RuntimeError("cuTensorMapEncodeTiled failed")
+    return ns / 1e3
 
 
 def phase_kernels(torch, fa, rates):
     """The kernel against its plain version on the card (out and lse), then
-    times at the main-path shape."""
+    times at the main-path shape and at LONG_SHAPE."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def qkv(bh, t, d, dtype):
         return [torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype)
                 for _ in range(3)]
 
+    # T = 1000 is ragged and spans several stages of the kernels' rings
     cases = [(bh, t, d, causal, dtype)
              for dtype in (torch.bfloat16, torch.float32)
-             for t, bh in ((128, 8), (1024, 4), (4096, 2))
+             for t, bh in ((128, 8), (1000, 4), (1024, 4), (4096, 2))
              for d in (64, 128) for causal in (True, False)]
     # the main path's own shapes: batch * heads, prompt, head_dim
     cases += [(b * 32, t, 128, True, torch.bfloat16) for b, t in MAIN_SHAPES]
@@ -155,26 +186,36 @@ def phase_kernels(torch, fa, rates):
     emit("kernels_check", cases=len(cases), worst=worst,
          tolerance="bf16 max|out err| < 2e-2; f32 rtol 2e-4 atol 2e-5; lse atol 1e-4")
 
-    # times at the first request's shape: [B*H, T, D] = [128, 1024, 128]
+    # times at the first request's shape, [B*H, T, D] = [128, 1024, 128],
+    # which the kernels line carries, then at the long shape
     b, t = MAIN_SHAPES[0]
-    h, d = 32, 128
-    q, k, v = qkv(b * h, t, d, torch.bfloat16)
+    rows = [_fwd_time_row(torch, fa, rates, qkv, shape)
+            for shape in ((b * 32, t, 128), LONG_SHAPE)]
+    for row in rows:
+        emit("kernels_time", **row)
+    return rows[0]
+
+
+def _fwd_time_row(torch, fa, rates, qkv, shape):
+    """The forward's kernels-line row at a bf16 causal [B*H, T, D], B*H
+    taken as B x 32 heads for the library call."""
+    bh, t, d = shape
+    q, k, v = qkv(bh, t, d, torch.bfloat16)
     scale = d ** -0.5
     out, _ = fa.flash_fwd_cuda(q, k, v, scale, True)
     ref, _ = fa.flash_attention_plain(q, k, v, scale, True)
     max_abs_err = (out.float() - ref.float()).abs().max().item()
+    del out, ref
     ms = time_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, scale, True), 20)
     plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, scale, True), 5)
-    q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
+    q4, k4, v4 = (x.view(bh // 32, 32, t, d) for x in (q, k, v))
     library_ms = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True), 20)
-    row = _time_row("flash_attn_fwd", [b * h, t, d], rates, ms, plain_ms,
-                    library_ms, max_abs_err, per_pair=4,
-                    moved=4 * b * h * t * d * 2 + b * h * t * 4,
-                    plain="flash_attention_plain (out, lse)",
-                    library="scaled_dot_product_attention (out)")
-    emit("kernels_time", **row)
-    return row
+    return _time_row("flash_attn_fwd", [bh, t, d], rates, ms, plain_ms,
+                     library_ms, max_abs_err, per_pair=4,
+                     moved=4 * bh * t * d * 2 + bh * t * 4,
+                     plain="flash_attention_plain (out, lse)",
+                     library="scaled_dot_product_attention (out)")
 
 
 def _time_row(name, shape, rates, ms, plain_ms, library_ms, max_abs_err,
@@ -201,7 +242,7 @@ def _time_row(name, shape, rates, ms, plain_ms, library_ms, max_abs_err,
 def phase_bwd_kernels(torch, fa, rates):
     """The dq and dk/dv kernels against the plain backward on the card,
     on the forward's case grid plus the train shape, then times at the
-    train shape [B*H, T, D] = [128, 1024, 128]."""
+    train shape [B*H, T, D] = [128, 1024, 128] and at LONG_SHAPE."""
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def inputs(bh, t, d, dtype, causal):
@@ -222,7 +263,7 @@ def phase_bwd_kernels(torch, fa, rates):
     h, d = 32, 128
     cases = [(bh, t_, d_, causal, dtype)
              for dtype in (torch.bfloat16, torch.float32)
-             for t_, bh in ((128, 8), (1024, 4), (4096, 2))
+             for t_, bh in ((128, 8), (1000, 4), (1024, 4), (4096, 2))
              for d_ in (64, 128) for causal in (True, False)]
     cases.append((b * h, t, d, True, torch.bfloat16))
     worst = {"bf16_mean_rel": 0.0, "f32_excess": 0.0}
@@ -251,13 +292,28 @@ def phase_bwd_kernels(torch, fa, rates):
          tolerance="bf16 mean|err|/mean|ref| < 2e-2 per output, all finite; "
                    "f32 rtol 2e-4 atol 2e-4")
 
+    # times at the train shape, which the kernels line carries, then at
+    # the long shape
+    rows = _bwd_time_rows(torch, fa, rates, inputs, run, (b * h, t, d))
+    long_rows = _bwd_time_rows(torch, fa, rates, inputs, run, LONG_SHAPE)
+    for row in [*rows.values(), *long_rows.values()]:
+        emit("kernels_time", **row)
+    return rows
+
+
+def _bwd_time_rows(torch, fa, rates, inputs, run, shape):
+    """The dq and dK/dV kernels-line rows at a bf16 causal [B*H, T, D], B*H
+    taken as B x 32 heads for the library call."""
+    bh, t, d = shape
+    b, h = bh // 32, 32
     scale = d ** -0.5
-    args = inputs(b * h, t, d, torch.bfloat16, True)
+    args = inputs(bh, t, d, torch.bfloat16, True)
     dq, dk, dv = run(args, scale, True)
     ref_dq, ref_dk, ref_dv = fa.flash_attention_bwd_plain(*args, scale, True)
     err = {"dq": (dq.float() - ref_dq.float()).abs().max().item(),
            "dkv": max((dk.float() - ref_dk.float()).abs().max().item(),
                       (dv.float() - ref_dv.float()).abs().max().item())}
+    del dq, dk, dv, ref_dq, ref_dk, ref_dv
     dq_ms = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(*args, scale, True), 20)
     dkv_ms = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(*args, scale, True), 20)
     # the plain version computes dq, dk and dv in one call
@@ -270,7 +326,7 @@ def phase_bwd_kernels(torch, fa, rates):
     library_ms = time_ms(torch, lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
         do4, q4, k4, v4, fwd[0], fwd[1], fwd[2], fwd[3], fwd[4], fwd[5], 0.0, True,
         fwd[6], fwd[7], scale=scale), 20)
-    tile = b * h * t * d * 2
+    tile = bh * t * d * 2
     # the plain and library calls each give dq, dk and dv at once, so
     # both rows carry the pair's time beside them
     covers = {"plain": "flash_attention_bwd_plain (dq, dk, dv)",
@@ -278,15 +334,14 @@ def phase_bwd_kernels(torch, fa, rates):
                          "(dq, dk, dv)"}
     rows = {
         "flash_attn_bwd_dq": _time_row(
-            "flash_attn_bwd_dq", [b * h, t, d], rates, dq_ms, plain_ms, library_ms,
-            err["dq"], per_pair=6, moved=5 * tile + 2 * b * h * t * 4, **covers),
+            "flash_attn_bwd_dq", [bh, t, d], rates, dq_ms, plain_ms, library_ms,
+            err["dq"], per_pair=6, moved=5 * tile + 2 * bh * t * 4, **covers),
         "flash_attn_bwd_dkv": _time_row(
-            "flash_attn_bwd_dkv", [b * h, t, d], rates, dkv_ms, plain_ms, library_ms,
-            err["dkv"], per_pair=8, moved=6 * tile + 2 * b * h * t * 4, **covers),
+            "flash_attn_bwd_dkv", [bh, t, d], rates, dkv_ms, plain_ms, library_ms,
+            err["dkv"], per_pair=8, moved=6 * tile + 2 * bh * t * 4, **covers),
     }
     for row in rows.values():
         row["pair_ms"] = dq_ms + dkv_ms
-        emit("kernels_time", **row)
     return rows
 
 
@@ -570,7 +625,7 @@ def main() -> int:
     t0 = time.perf_counter()
     name, smi = phase_device(torch, build, hardware)
     rates = hardware.peak_rates(name)
-    limiter_lib = phase_build(build)
+    limiter_lib = phase_build(torch, build, fa)
     rows = {"flash_attn_fwd": phase_kernels(torch, fa, rates)}
     rows.update(phase_bwd_kernels(torch, fa, rates))
 

@@ -4,8 +4,9 @@ Each source under ``csrc/`` compiles on its own into a shared library with
 a plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC``).  Nothing is built at import: the first call
 that needs a library builds it into ``build/kernels/`` at the repository
-root (listed in ``.gitignore``), named by a hash of its source and flags so
-an edited source never loads a stale binary.  ``build_all()`` starts one
+root (listed in ``.gitignore``), named by a hash of its source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header never
+loads a stale binary.  ``build_all()`` starts one
 nvcc per source, all at once, and waits for them together.
 
 A missing nvcc or a failed compile raises: there is no fallback.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -58,9 +60,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the named library is built: named by a hash of its source,
+    of every header under ``csrc/`` (a source may include any of them) and
+    of the flags."""
+    digest = hashlib.sha256()
+    for path in [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def ptxas_report(name: str) -> str:
@@ -68,6 +75,51 @@ def ptxas_report(name: str) -> str:
     shared memory, spills per kernel), or "" when it was not built here."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def ptxas_summary(report: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of a ``-Xptxas -v`` report: registers, spill bytes
+    (stores plus loads), stack frame and static shared memory bytes,
+    keyed by the kernel's name with its namespaces and head dim
+    (``fwd90::flash_fwd_kernel<128>``)."""
+    out: Dict[str, Dict[str, int]] = {}
+    kernel = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = _short_name(m.group(1))
+            out[kernel] = {"registers": 0, "spill_bytes": 0, "stack": 0, "smem": 0}
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[kernel]["stack"] = int(m.group(1))
+            out[kernel]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[kernel]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[kernel]["smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def _short_name(mangled: str) -> str:
+    """``_ZN<anon>5fwd9016flash_fwd_kernelILi128EE...`` ->
+    ``fwd90::flash_fwd_kernel<128>``: the nested names of an Itanium
+    mangled name, without the anonymous namespace, and an integer
+    template argument."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    names = []
+    while pos < len(mangled) and mangled[pos].isdigit():
+        digits = re.match(r"\d+", mangled[pos:]).group()
+        pos += len(digits)
+        names.append(mangled[pos:pos + int(digits)])
+        pos += int(digits)
+    arg = re.match(r"ILi(\d+)E", mangled[pos:])
+    return "::".join(n for n in names if not n.startswith("_GLOBAL__N")) + (
+        f"<{arg.group(1)}>" if arg else "")
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

@@ -4,45 +4,59 @@
 // (tensorfusion_tpu/ops/flash_attention.py:249-295): `_dq_kernel`
 // (:158-199) and `_dkv_kernel` (:202-246).  Same math, from the forward's
 // per-row logsumexp L and the row constant delta = rowsum(dO * O), both f32:
-//   S  = scale * Q K^T (f32 from the input-dtype operands), then the causal
-//        mask writes NEG_INF = -1e30 where key > query;
+//   S  = scale * Q K^T (f32 from the input-dtype operands), causal mask
+//        where key > query;
 //   P  = exp(S - L)            (masked entries give exactly 0);
 //   dP = dO V^T;  dS = P * (dP - delta);
 //   dQ = scale * dS K,  dK = scale * dS^T Q,  dV = P^T dO.
 // In bf16, P is rounded to bf16 before P^T dO and dS before dS K and
-// dS^T Q, as the TPU kernels cast them (:194-195, :235-241); every product
-// accumulates in f32 and nothing else is rounded.
+// dS^T Q, as the TPU kernels cast them (:194-195, :235-241); dS is formed
+// from the unrounded P; every product accumulates in f32.
 //
 // What bounds them on this card.  At the training shape (bf16, BH = 128,
 // T = 1024, D = 128, causal) dQ does 6 * D FLOPs per visible query-key
 // pair (51.6 GFLOP) against 169 MB moved, dK/dV 8 * D (68.8 GFLOP) against
 // 202 MB: about 300 and 340 operations per byte, past the H100's bf16
-// ridge point (~295), so both are bound by the tensor cores.
+// ridge (~295), so both are bound by the tensor cores, which only wgmma
+// drives at their full rate.
 //
-// Design.  The TPU grids walk the other operand's tiles along a
-// sequential third axis and carry the f32 accumulators in VMEM scratch.
-// GPU blocks run in no order, so here one block owns one output tile and
-// loops over the other axis itself: no atomics and no second pass.
-// - dQ: one block per (bh, 64-row query tile), four warps of 16 query
-//   rows; Q, dO and the rows' L and delta stay resident while the block
-//   walks the 64-key K/V tiles up to the diagonal.  S = Q K^T and
-//   dP = dO V^T take K and V as the forward's Q K^T takes K; dS K takes K
-//   as the forward's P V takes V, with dS reused from registers as the A
-//   operand.
-// - dK/dV: one block per (bh, 64-key tile), four warps of 16 keys; K and V
-//   stay resident while the block walks the 32-query Q/dO tiles from the
-//   diagonal to the end.  It works in the transposed frame, so that a
-//   warp's rows are keys: S^T = K Q^T, P^T = exp(S^T - L[col]),
-//   dV += P^T dO, dP^T = V dO^T, dS^T = P^T * (dP^T - delta[col]),
-//   dK += dS^T Q; the tile's L and delta are staged in shared memory.
-//   The 32-query tile keeps the score fragments small beside the two
-//   16 x D f32 accumulators (128 registers a thread at D = 128).
-// bf16 runs on the tensor cores through mma.sync m16n8k16 (bf16 in, f32
-// accumulate); tiles are staged through padded shared memory (row stride
-// D + 8) with the ragged edge zero-filled and masked, so any T is taken.
-// f32 keeps full f32 products (no TF32): one warp per output row, one
-// key (dQ) or query (dK/dV) per lane, plain FMA.  Not yet done here:
-// cp.async/TMA double-buffering, ldmatrix, wgmma.
+// The TPU grids walk the other operand's tiles along a sequential axis and
+// carry the f32 accumulators in VMEM.  GPU blocks run in no order, so here
+// one block owns one output tile and loops over the other axis itself: no
+// atomics and no second pass.
+//
+// dK/dV, bf16 at D = 64 and 128 (`dkv90`): one block of three warpgroups
+// per (bh, 128-key tile), in the transposed frame (rows are keys), so every
+// product maps onto wgmma without reshuffling.  Warpgroup 0 is the
+// producer: it gives its registers up (setmaxnreg); one thread loads K and
+// V once by TMA and streams 64-query Q and dO tiles through a four-stage
+// ring (full and empty mbarriers), while its warp stages each tile's
+// lse * log2(e) and delta in shared memory (lse = +inf past T, so P = 0
+// there).  Warpgroups 1 and 2 own 64 keys each and keep dK and dV as two
+// 64 x D f32 accumulators in registers (128 a thread at D = 128, which is
+// why they take the producer's registers): S^T = K Q^T and dP^T = V dO^T
+// by wgmma m64n64k16 from 128B-swizzled shared memory, two groups in
+// flight so that P^T = exp2(S^T scale log2(e) - lse log2(e)) overlaps
+// dP^T; then dS^T = P^T (dP^T - delta), and dV += P^T dO, dK += dS^T Q
+// with P^T and dS^T rounded to bf16 in registers as the A operand and dO
+// and Q read transposed by the descriptor.  The two warpgroups take turns
+// at issuing their products (named barriers), so one's exponentials
+// overlap the other's products.  The causal mask is a select, not a
+// branch (a branch around the products makes ptxas serialize them), and
+// the walk starts at the query tile of the block's first key.  Heads
+// launch in groups whose Q and dO fit in L2, and within a group key tile
+// 0, which walks every query, launches first.  3-D tensor maps over
+// [BH, T, D] zero-fill past T instead of reading the next head.
+//
+// Other paths, chosen by dtype and D before any launch:
+// - dQ (every head dim) keeps the first design: one block per (bh,
+//   64-query tile), four warps of 16 rows on mma.sync m16n8k16, Q, dO, L
+//   and delta resident while it walks 64-key K/V tiles through padded
+//   shared memory.
+// - dK/dV in bf16 at D = 16 and 32 keeps the mma.sync kernel: one block per
+//   (bh, 64-key tile), four warps of 16 keys, 32-query Q/dO tiles.
+// - f32 keeps full f32 products (no TF32): one warp per output row, one key
+//   (dQ) or query (dK/dV) per lane, plain FMA.
 //
 // Interface: plain C, bound with ctypes.  Each entry point returns
 // cudaGetLastError() after its launch.
@@ -51,12 +65,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernels
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16 dQ, and dK/dV at D = 16 and 32: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
 constexpr int kBM = 64;   // output rows per block (queries for dQ, keys for dK/dV)
@@ -85,12 +101,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two floats rounded to bf16, the lower column in the low half.
-__device__ __forceinline__ uint32_t pack_f32x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -154,10 +164,10 @@ __device__ __forceinline__ void load_b_cols(uint32_t b[2], const __nv_bfloat16* 
 // Two accumulator fragments (columns 16c .. 16c + 15 of one 16-row
 // block) rounded to bf16 as one A fragment.
 __device__ __forceinline__ void pack_a(uint32_t a[4], const float lo[4], const float hi[4]) {
-  a[0] = pack_f32x2(lo[0], lo[1]);
-  a[1] = pack_f32x2(lo[2], lo[3]);
-  a[2] = pack_f32x2(hi[0], hi[1]);
-  a[3] = pack_f32x2(hi[2], hi[3]);
+  a[0] = tpf::pack_bf16(lo[0], lo[1]);
+  a[1] = tpf::pack_bf16(lo[2], lo[3]);
+  a[2] = tpf::pack_bf16(hi[0], hi[1]);
+  a[3] = tpf::pack_bf16(hi[2], hi[3]);
 }
 
 template <int D>
@@ -410,6 +420,251 @@ dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 }
 
 // ---------------------------------------------------------------------------
+// bf16 dK/dV at D = 64 and 128: TMA ring and warp-specialised wgmma
+// ---------------------------------------------------------------------------
+
+namespace dkv90 {
+
+constexpr int kBN = 128;         // keys per block, 64 per consumer warpgroup
+constexpr int kBM = 64;          // queries per streamed Q/dO tile
+constexpr int kStages = 4;       // depth of the Q/dO ring
+constexpr int kThreads = 384;    // producer warpgroup + two consumer warpgroups
+constexpr int kConsumerThreads = 256;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+// Shared memory: K and V (resident), the Q and dO rings (each tile D / 64
+// swizzled boxes of [rows, 64]), the ring's lse * log2(e) and delta rows
+// ([S][2][kBM] f32), then the barriers kv_full, full[S], empty[S]; 1024
+// bytes of slack align the tiles for the 128B swizzle.
+template <int D>
+struct Layout {
+  static constexpr int kTileKV = kBN * D * 2;
+  static constexpr int kTileQ = kBM * D * 2;
+  static constexpr int kV = kTileKV;
+  static constexpr int kQ = 2 * kTileKV;
+  static constexpr int kDO = kQ + kStages * kTileQ;
+  static constexpr int kRows = kDO + kStages * kTileQ;
+  static constexpr int kBars = kRows + kStages * 2 * kBM * 4;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int n_bh, int t,
+           float scale, int causal, int group) {
+  using L = Layout<D>;
+  constexpr int kBoxes = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = tpf::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* const rows_smem = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kRows);
+  const uint32_t kv_full = base + L::kBars;
+  const auto full = [&](int s) { return kv_full + 8u * (1 + s); };
+  const auto empty = [&](int s) { return kv_full + 8u * (1 + kStages + s); };
+  const auto q_tile = [&](int s) { return base + L::kQ + s * L::kTileQ; };
+  const auto do_tile = [&](int s) { return base + L::kDO + s * L::kTileQ; };
+  const auto slse = [&](int s) { return rows_smem + s * 2 * kBM; };
+  const auto sdelta = [&](int s) { return rows_smem + s * 2 * kBM + kBM; };
+
+  // Heads launch in groups whose Q and dO stay in L2 while their blocks
+  // run; within a group key tile 0, which walks every query, launches
+  // first.
+  int bh, kt;
+  tpf::grouped_tile(blockIdx.x, n_bh, (t + kBN - 1) / kBN, group, &bh, &kt);
+  const int k0 = kt * kBN;
+  const int n_m = (t + kBM - 1) / kBM;
+  // causal: queries before the block's first key see none of its keys
+  const int m_begin = causal ? k0 / kBM : 0;
+
+  if (threadIdx.x == 0) {
+    tpf::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      tpf::mbar_init(full(s), 32);
+      tpf::mbar_init(empty(s), kConsumerThreads);
+    }
+    tpf::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: warp 0 keeps the ring full; lane 0 issues the TMA loads and
+    // every lane stages two of the tile's lse and delta entries
+    tpf::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        tpf::mbar_arrive_expect_tx(kv_full, 2 * L::kTileKV);
+        for (int c = 0; c < kBoxes; ++c) {
+          tpf::tma_load_3d(base + c * kBN * 128, &tk, kv_full, c * 64, k0, bh);
+          tpf::tma_load_3d(base + L::kV + c * kBN * 128, &tv, kv_full, c * 64, k0, bh);
+        }
+      }
+      for (int i = m_begin, j = 0; i < n_m; ++i, ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) tpf::mbar_wait(empty(s), ((j / kStages) - 1) & 1);
+        const int m0 = i * kBM;
+        for (int r = lane; r < kBM; r += 32) {
+          // a query past T gets lse = +inf, so its P is exactly 0
+          const bool in = m0 + r < t;
+          slse(s)[r] = in ? lse[(size_t)bh * t + m0 + r] * 1.4426950408889634f : INFINITY;
+          sdelta(s)[r] = in ? delta[(size_t)bh * t + m0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          tpf::mbar_arrive_expect_tx(full(s), 2 * L::kTileQ);
+          for (int c = 0; c < kBoxes; ++c) {
+            tpf::tma_load_3d(q_tile(s) + c * kBM * 128, &tq, full(s), c * 64, m0, bh);
+            tpf::tma_load_3d(do_tile(s) + c * kBM * 128, &tdo, full(s), c * 64, m0, bh);
+          }
+        } else {
+          tpf::mbar_arrive(full(s));
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys [k0 + 64 wg, k0 + 64 wg + 64), in the
+  // transposed frame (rows are keys, columns the tile's queries)
+  tpf::setmaxnreg_inc<kConsumerRegs>();
+  const int tid = threadIdx.x - 128;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int kw0 = k0 + 64 * wg;
+  const int keys[2] = {kw0 + 16 * warp + lane / 4, kw0 + 16 * warp + lane / 4 + 8};
+  const int col = 2 * (lane % 4);  // column of d[4n] within chunk n
+  const float c2 = scale * 1.4426950408889634f;
+
+  float acc_k[kBoxes][32], acc_v[kBoxes][32];
+#pragma unroll
+  for (int b = 0; b < kBoxes; ++b) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_k[b][i] = acc_v[b][i] = 0.f;
+  }
+  const uint32_t k_rows = base + wg * 64 * 128;
+  const uint32_t v_rows = base + L::kV + wg * 64 * 128;
+
+  // The two warpgroups take turns at issuing their products (named
+  // barriers 1 and 2), twice a tile: S^T and dP^T, then dV and dK.  So
+  // one's exponentials and dS^T overlap the other's products.  Warpgroup 0
+  // goes first; warpgroup 1's last arrival is left on barrier 1 at exit.
+  // Every tile is computed, even one wholly before a warpgroup's keys
+  // (the mask zeroes it): a branch around the products would serialize
+  // them.
+  const int my_turn = 1 + wg, their_turn = 2 - wg;
+  if (wg == 1) tpf::named_bar_arrive(their_turn, kConsumerThreads);
+  tpf::mbar_wait(kv_full, 0);
+  for (int i = m_begin, j = 0; i < n_m; ++i, ++j) {
+    const int s = j % kStages;
+    const int m0 = i * kBM;
+    float st[32], dpt[32];
+    tpf::mbar_wait(full(s), (j / kStages) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, two groups in flight
+    tpf::named_bar_sync(my_turn, kConsumerThreads);
+    tpf::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t slice = (kk % 4) * 32;
+      tpf::wgmma_m64n64_ss(st, tpf::desc_sw128(k_rows + (kk / 4) * kBN * 128 + slice),
+                           tpf::desc_sw128(q_tile(s) + (kk / 4) * kBM * 128 + slice), kk > 0);
+    }
+    tpf::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t slice = (kk % 4) * 32;
+      tpf::wgmma_m64n64_ss(dpt, tpf::desc_sw128(v_rows + (kk / 4) * kBN * 128 + slice),
+                           tpf::desc_sw128(do_tile(s) + (kk / 4) * kBM * 128 + slice), kk > 0);
+    }
+    tpf::wgmma_commit();
+    tpf::named_bar_arrive(their_turn, kConsumerThreads);
+
+    // P^T = exp2(S^T * scale * log2(e) - lse * log2(e)) while dP^T runs;
+    // causal: column 8n + e of chunk n is hidden from key r when
+    // 8n + e < limit[r]
+    tpf::wgmma_wait<1>();
+    tpf::fence_regs(st);
+    const float* sl = slse(s);
+    int limit[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) limit[r] = causal ? keys[r] - m0 - col : -1;
+#pragma unroll
+    for (int n = 0; n < kBM / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = st[4 * n + e] * c2 - sl[8 * n + col + (e & 1)];
+        st[4 * n + e] = 8 * n + (e & 1) < limit[e >> 1] ? 0.f : tpf::exp2_approx(x);
+      }
+    }
+    // dS^T = P^T * (dP^T - delta), from the unrounded P^T
+    tpf::wgmma_wait<0>();
+    tpf::fence_regs(dpt);
+    const float* sd = sdelta(s);
+#pragma unroll
+    for (int n = 0; n < kBM / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * n + e] = st[4 * n + e] * (dpt[4 * n + e] - sd[8 * n + col + (e & 1)]);
+    }
+    // P^T and dS^T rounded to bf16 as A operands
+    uint32_t pa[kBM / 16][4], da[kBM / 16][4];
+#pragma unroll
+    for (int c = 0; c < kBM / 16; ++c) {
+      tpf::pack_a(pa[c], st, c);
+      tpf::pack_a(da[c], dpt, c);
+    }
+
+    // dV += P^T dO and dK += dS^T Q, dO and Q transposed from shared memory
+    tpf::named_bar_sync(my_turn, kConsumerThreads);
+    tpf::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kBM / 16; ++c) {
+#pragma unroll
+      for (int b = 0; b < kBoxes; ++b) {
+        tpf::wgmma_m64n64_rs_tb(acc_v[b], pa[c],
+                                tpf::desc_sw128(do_tile(s) + b * kBM * 128 + c * 2048));
+        tpf::wgmma_m64n64_rs_tb(acc_k[b], da[c],
+                                tpf::desc_sw128(q_tile(s) + b * kBM * 128 + c * 2048));
+      }
+    }
+    tpf::wgmma_commit();
+    tpf::named_bar_arrive(their_turn, kConsumerThreads);
+    tpf::wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < kBoxes; ++b) {
+      tpf::fence_regs(acc_k[b]);
+      tpf::fence_regs(acc_v[b]);
+    }
+    tpf::mbar_arrive(empty(s));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] < t) {
+      __nv_bfloat16* krow = dk + ((size_t)bh * t + keys[r]) * D;
+      __nv_bfloat16* vrow = dv + ((size_t)bh * t + keys[r]) * D;
+#pragma unroll
+      for (int b = 0; b < kBoxes; ++b) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int c = 64 * b + 8 * n + col;
+          *reinterpret_cast<__nv_bfloat162*>(krow + c) = __floats2bfloat162_rn(
+              acc_k[b][4 * n + 2 * r] * scale, acc_k[b][4 * n + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(vrow + c) =
+              __floats2bfloat162_rn(acc_v[b][4 * n + 2 * r], acc_v[b][4 * n + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace dkv90
+
+// ---------------------------------------------------------------------------
 // f32: full-precision FMA, one warp per output row, one column per lane
 // ---------------------------------------------------------------------------
 
@@ -620,6 +875,35 @@ cudaError_t dkv_bf16(const BwdArgs& a, void* dk, void* dv) {
 }
 
 template <int D>
+cudaError_t dkv90_launch(const BwdArgs& a, void* dk, void* dv) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = tpf::tensor_map_bf16(&tq, a.q, a.bh, a.t, D, dkv90::kBM);
+  if (err == cudaSuccess) err = tpf::tensor_map_bf16(&tk, a.k, a.bh, a.t, D, dkv90::kBN);
+  if (err == cudaSuccess) err = tpf::tensor_map_bf16(&tv, a.v, a.bh, a.t, D, dkv90::kBN);
+  if (err == cudaSuccess) err = tpf::tensor_map_bf16(&tdo, a.dout, a.bh, a.t, D, dkv90::kBM);
+  if (err != cudaSuccess) return err;
+  constexpr int bytes = dkv90::Layout<D>::kBytes;
+  err = cudaFuncSetAttribute(dkv90::dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = (a.t + dkv90::kBN - 1) / dkv90::kBN * a.bh;
+  dkv90::dkv_kernel<D><<<blocks, dkv90::kThreads, bytes, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), a.bh, a.t, a.scale, a.causal,
+      tpf::heads_per_group(a.bh, a.t, D));
+  return cudaGetLastError();
+}
+
+// bf16 dK/dV by head dim: the Hopper design at 64 and 128, mma.sync below.
+template <int D>
+cudaError_t dkv_bf16_route(const BwdArgs& a, void* dk, void* dv) {
+  if constexpr (D >= 64) {
+    return dkv90_launch<D>(a, dk, dv);
+  } else {
+    return dkv_bf16<D>(a, dk, dv);
+  }
+}
+
+template <int D>
 cudaError_t dq_f32(const BwdArgs& a, void* dq) {
   const dim3 grid((a.t + kRowsF - 1) / kRowsF, a.bh);
   dq_f32_kernel<D><<<grid, kRowsF * 32, 0, a.stream>>>(
@@ -686,7 +970,19 @@ extern "C" int tpf_flash_attn_bwd_dkv(const void* q, const void* k, const void* 
   const BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
                   static_cast<const float*>(delta), bh, t, scale, causal,
                   static_cast<cudaStream_t>(stream)};
-  TPF_DISPATCH(dtype, d, dkv_bf16, dkv_f32, a, dk, dv);
+  TPF_DISPATCH(dtype, d, dkv_bf16_route, dkv_f32, a, dk, dv);
 }
 
 #undef TPF_DISPATCH
+
+// Dynamic shared memory of one block of the bf16 dQ (which = 0) or dK/dV
+// (which = 1) kernel at head dim d, in bytes; -1 for what they do not take.
+extern "C" int tpf_flash_attn_bwd_smem(int d, int which) {
+  switch (d) {
+    case 16: return which ? dkv_smem_bytes<16>() : dq_smem_bytes<16>();
+    case 32: return which ? dkv_smem_bytes<32>() : dq_smem_bytes<32>();
+    case 64: return which ? dkv90::Layout<64>::kBytes : dq_smem_bytes<64>();
+    case 128: return which ? dkv90::Layout<128>::kBytes : dq_smem_bytes<128>();
+    default: return -1;
+  }
+}

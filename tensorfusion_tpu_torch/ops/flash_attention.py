@@ -213,6 +213,9 @@ _ARGTYPES = {
     "tpf_flash_attn_fwd": [_VP] * 5 + [_CI] * 3 + [_CF, _CI, _CI, _VP],
     "tpf_flash_attn_bwd_dq": [_VP] * 7 + [_CI] * 3 + [_CF, _CI, _CI, _VP],
     "tpf_flash_attn_bwd_dkv": [_VP] * 8 + [_CI] * 3 + [_CF, _CI, _CI, _VP],
+    "tpf_flash_attn_fwd_smem": [_CI],
+    "tpf_flash_attn_bwd_smem": [_CI, _CI],
+    "tpf_tensor_map_encode_ns": [_VP] + [_CI] * 4,
 }
 
 

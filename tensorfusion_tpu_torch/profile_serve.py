@@ -26,12 +26,13 @@ STEPS = 8     # decode steps traced
 TOP = 8       # kernels listed per phase
 
 #: device-time groups, by a substring of the kernel's name: the attention
-#: kernels of this package, the matrix products, and (matching none of
-#: these) "other"; the first match wins
+#: kernels of this package (every kernel of ``ops/csrc/``, whatever its
+#: head-dim path), the matrix products, and (matching none of these)
+#: "other"; the first match wins
 GROUPS = (
     ("flash_fwd", "flash_fwd_"),
-    ("flash_bwd_dq", "dq_bf16_kernel"),
-    ("flash_bwd_dkv", "dkv_bf16_kernel"),
+    ("flash_bwd_dq", "dq_"),
+    ("flash_bwd_dkv", "dkv_"),
     ("matmul", "gemm"),
     ("matmul", "nvjet"),
     ("matmul", "cutlass"),
