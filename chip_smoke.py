@@ -134,8 +134,8 @@ def _dynamic_smem(fa):
 
 def _encode_us(torch, fa):
     """Host microseconds of one tensor-map encode of a [128, 1024, 128]
-    bf16 tensor, the mean of 1000 (a forward launch encodes 3, a dK/dV
-    launch 4)."""
+    bf16 tensor, the mean of 1000 (a forward launch encodes 3, a dQ or
+    dK/dV launch 4)."""
     x = torch.empty((128, 1024, 128), dtype=torch.bfloat16, device="cuda")
     ns = fa._library("flash_attn_fwd").tpf_tensor_map_encode_ns(x.data_ptr(), 128, 1024, 128, 1000)
     if ns < 0:

@@ -23,38 +23,63 @@
 // The TPU grids walk the other operand's tiles along a sequential axis and
 // carry the f32 accumulators in VMEM.  GPU blocks run in no order, so here
 // one block owns one output tile and loops over the other axis itself: no
-// atomics and no second pass.
+// atomics and no second pass, so every sum runs in one fixed order.
+//
+// Both bf16 kernels at D = 64 and 128 share one design (`dq90`, `dkv90`):
+// TMA loads over 3-D tensor maps into rings of 128B-swizzled tiles with
+// full and empty mbarriers, a producer warpgroup that gives its registers
+// up (setmaxnreg), and two wgmma consumer warpgroups that take turns at
+// issuing their products (named barriers), so one's exponentials overlap
+// the other's products.  The causal mask is applied to scores, never as a
+// branch around a product (a branch around wgmma makes ptxas serialize
+// the products).  The 3-D maps zero-fill past T instead of reading the
+// next head, and heads launch in groups whose streamed operands fit in L2.
+//
+// dQ, bf16 at D = 64 and 128 (`dq90`): bound by the tensor cores, as
+// above, and fed from L2: each streamed 128-key K/V tile (64 KB at
+// D = 128) carries 128 queries x 128 keys x 6 D FLOPs (12.6 MFLOP), so
+// 700 TFLOP/s takes about 3.6 TB/s of K and V from L2.  One block of three
+// warpgroups per (bh, 128-query tile).  One producer thread loads Q and dO
+// once and streams 128-key K and V tiles through a two-stage ring, Q, dO,
+// K and V on full barriers apart so that S = Q K^T starts before dO and V
+// land.  Warpgroups 1 and 2 own 64 queries each and keep dQ as D / 64 f32
+// m64n64 accumulators in registers (64 a thread at D = 128), with
+// lse * log2(e) and delta of their two rows in registers (lse = +inf past
+// T, so P = 0 there).  Per tile: S = Q K^T and dP = dO V^T by wgmma
+// m64n128k16 from shared memory, two groups in flight so that
+// P = exp2(S scale log2(e) - lse log2(e)) overlaps dP; dS = P (dP - delta)
+// from the unrounded P, rounded to bf16 in registers as the A operand of
+// dQ += dS K, K read transposed by the descriptor (m64n64k16 per 64
+// columns of D).  K is read twice, so a stage is released only after the
+// dQ product.  The walk covers keys [0, min(T, q0 + 128)), masked only on
+// the tile that crosses the diagonal or T.  128-key tiles beat 64-key
+// tiles in a four-stage ring (m64n64 for S and dP: the same bytes in
+// flight, twice the issue turns), and no warpgroup has a tile to skip.
+// Within a head group the heaviest (last) query tiles launch first.
 //
 // dK/dV, bf16 at D = 64 and 128 (`dkv90`): one block of three warpgroups
 // per (bh, 128-key tile), in the transposed frame (rows are keys), so every
-// product maps onto wgmma without reshuffling.  Warpgroup 0 is the
-// producer: it gives its registers up (setmaxnreg); one thread loads K and
-// V once by TMA and streams 64-query Q and dO tiles through a four-stage
-// ring (full and empty mbarriers), while its warp stages each tile's
-// lse * log2(e) and delta in shared memory (lse = +inf past T, so P = 0
-// there).  Warpgroups 1 and 2 own 64 keys each and keep dK and dV as two
-// 64 x D f32 accumulators in registers (128 a thread at D = 128, which is
-// why they take the producer's registers): S^T = K Q^T and dP^T = V dO^T
-// by wgmma m64n64k16 from 128B-swizzled shared memory, two groups in
-// flight so that P^T = exp2(S^T scale log2(e) - lse log2(e)) overlaps
-// dP^T; then dS^T = P^T (dP^T - delta), and dV += P^T dO, dK += dS^T Q
-// with P^T and dS^T rounded to bf16 in registers as the A operand and dO
-// and Q read transposed by the descriptor.  The two warpgroups take turns
-// at issuing their products (named barriers), so one's exponentials
-// overlap the other's products.  The causal mask is a select, not a
-// branch (a branch around the products makes ptxas serialize them), and
-// the walk starts at the query tile of the block's first key.  Heads
-// launch in groups whose Q and dO fit in L2, and within a group key tile
-// 0, which walks every query, launches first.  3-D tensor maps over
-// [BH, T, D] zero-fill past T instead of reading the next head.
+// product maps onto wgmma without reshuffling.  One producer thread loads
+// K and V once and streams 64-query Q and dO tiles through a four-stage
+// ring, while its warp stages each tile's lse * log2(e) and delta in
+// shared memory (lse = +inf past T, so P = 0 there).  Warpgroups 1 and 2
+// own 64 keys each and keep dK and dV as two 64 x D f32 accumulators in
+// registers (128 a thread at D = 128, which is why they take the
+// producer's registers): S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16
+// from shared memory, two groups in flight so that P^T = exp2(S^T scale
+// log2(e) - lse log2(e)) overlaps dP^T; then dS^T = P^T (dP^T - delta),
+// and dV += P^T dO, dK += dS^T Q with P^T and dS^T rounded to bf16 in
+// registers as the A operand and dO and Q read transposed by the
+// descriptor.  The causal mask is a select on every tile, and the walk
+// starts at the query tile of the block's first key.  Within a head group
+// key tile 0, which walks every query, launches first.
 //
 // Other paths, chosen by dtype and D before any launch:
-// - dQ (every head dim) keeps the first design: one block per (bh,
-//   64-query tile), four warps of 16 rows on mma.sync m16n8k16, Q, dO, L
-//   and delta resident while it walks 64-key K/V tiles through padded
-//   shared memory.
-// - dK/dV in bf16 at D = 16 and 32 keeps the mma.sync kernel: one block per
-//   (bh, 64-key tile), four warps of 16 keys, 32-query Q/dO tiles.
+// - bf16 at D = 16 and 32 keeps the mma.sync m16n8k16 kernels (the 128B
+//   swizzle needs 64 columns): dQ one block per (bh, 64-query tile), four
+//   warps of 16 rows, Q, dO, L and delta resident while it walks 64-key
+//   K/V tiles through padded shared memory; dK/dV one block per (bh,
+//   64-key tile), four warps of 16 keys, 32-query Q/dO tiles.
 // - f32 keeps full f32 products (no TF32): one warp per output row, one key
 //   (dQ) or query (dK/dV) per lane, plain FMA.
 //
@@ -72,7 +97,7 @@ namespace {
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernels
 
 // ---------------------------------------------------------------------------
-// bf16 dQ, and dK/dV at D = 16 and 32: tensor cores through mma.sync
+// bf16 dQ and dK/dV at D = 16 and 32: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
 constexpr int kBM = 64;   // output rows per block (queries for dQ, keys for dK/dV)
@@ -665,6 +690,233 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 }  // namespace dkv90
 
 // ---------------------------------------------------------------------------
+// bf16 dQ at D = 64 and 128: TMA ring and warp-specialised wgmma
+// ---------------------------------------------------------------------------
+
+namespace dq90 {
+
+constexpr int kBM = 128;         // queries per block, 64 per consumer warpgroup
+constexpr int kBN = 128;         // keys per streamed K/V tile
+constexpr int kStages = 2;       // depth of the K and V rings
+constexpr int kThreads = 384;    // producer warpgroup + two consumer warpgroups
+constexpr int kConsumerThreads = 256;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+// Shared memory: Q and dO (resident), the K and V rings (each tile D / 64
+// swizzled boxes of [rows, 64]), then the barriers q_full, do_full,
+// k_full[S], v_full[S], empty[S]; 1024 bytes of slack align the tiles for
+// the 128B swizzle.
+template <int D>
+struct Layout {
+  static constexpr int kTileQ = kBM * D * 2;
+  static constexpr int kTileKV = kBN * D * 2;
+  static constexpr int kDO = kTileQ;
+  static constexpr int kK = 2 * kTileQ;
+  static constexpr int kV = kK + kStages * kTileKV;
+  static constexpr int kBars = kV + kStages * kTileKV;
+  static constexpr int kBytes = kBars + 8 * (2 + 3 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          __nv_bfloat16* __restrict__ dq, int n_bh, int t, float scale, int causal, int group) {
+  using L = Layout<D>;
+  constexpr int kBoxes = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (tpf::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t do_full = q_full + 8u;
+  const auto k_full = [&](int s) { return q_full + 8u * (2 + s); };
+  const auto v_full = [&](int s) { return q_full + 8u * (2 + kStages + s); };
+  const auto empty = [&](int s) { return q_full + 8u * (2 + 2 * kStages + s); };
+  const auto k_tile = [&](int s) { return base + L::kK + s * L::kTileKV; };
+  const auto v_tile = [&](int s) { return base + L::kV + s * L::kTileKV; };
+
+  // Heads launch in groups whose K and V stay in L2 while their blocks
+  // run; within a group the heaviest (last) query tiles launch first.
+  const int n_qtiles = (t + kBM - 1) / kBM;
+  int bh, rank;
+  tpf::grouped_tile(blockIdx.x, n_bh, n_qtiles, group, &bh, &rank);
+  const int q0 = (n_qtiles - 1 - rank) * kBM;
+  // causal: keys past the block's last query are hidden from all its rows
+  const int kv_end = causal ? min(t, q0 + kBM) : t;
+  const int n_kv = (kv_end + kBN - 1) / kBN;
+
+  if (threadIdx.x == 0) {
+    tpf::mbar_init(q_full, 1);
+    tpf::mbar_init(do_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      tpf::mbar_init(k_full(s), 1);
+      tpf::mbar_init(v_full(s), 1);
+      tpf::mbar_init(empty(s), kConsumerThreads);
+    }
+    tpf::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread loads Q and dO once and keeps the rings full.
+    // Q, dO, K and V each have their own full barriers, so S = Q K^T can
+    // start before dO and V land; the first K goes before dO.
+    tpf::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tpf::mbar_arrive_expect_tx(q_full, L::kTileQ);
+      for (int c = 0; c < kBoxes; ++c)
+        tpf::tma_load_3d(base + c * kBM * 128, &tq, q_full, c * 64, q0, bh);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) tpf::mbar_wait(empty(s), ((j / kStages) - 1) & 1);
+        tpf::mbar_arrive_expect_tx(k_full(s), L::kTileKV);
+        for (int c = 0; c < kBoxes; ++c)
+          tpf::tma_load_3d(k_tile(s) + c * kBN * 128, &tk, k_full(s), c * 64, j * kBN, bh);
+        if (j == 0) {
+          tpf::mbar_arrive_expect_tx(do_full, L::kTileQ);
+          for (int c = 0; c < kBoxes; ++c)
+            tpf::tma_load_3d(base + L::kDO + c * kBM * 128, &tdo, do_full, c * 64, q0, bh);
+        }
+        tpf::mbar_arrive_expect_tx(v_full(s), L::kTileKV);
+        for (int c = 0; c < kBoxes; ++c)
+          tpf::tma_load_3d(v_tile(s) + c * kBN * 128, &tv, v_full(s), c * 64, j * kBN, bh);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows [q0 + 64 wg, q0 + 64 wg + 64)
+  tpf::setmaxnreg_inc<kConsumerRegs>();
+  const int tid = threadIdx.x - 128;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int row0 = q0 + 64 * wg;
+  const int rows[2] = {row0 + 16 * warp + lane / 4, row0 + 16 * warp + lane / 4 + 8};
+  const int col = 2 * (lane % 4);  // column of d[4n] within chunk n
+  const float c2 = scale * 1.4426950408889634f;  // scores in the log2 domain
+
+  // a row past T gets lse = +inf, so its P is exactly 0
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = rows[r] < t;
+    row_lse[r] = in ? lse[(size_t)bh * t + rows[r]] * 1.4426950408889634f : INFINITY;
+    row_delta[r] = in ? delta[(size_t)bh * t + rows[r]] : 0.f;
+  }
+
+  float acc[kBoxes][32];
+#pragma unroll
+  for (int b = 0; b < kBoxes; ++b) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[b][i] = 0.f;
+  }
+  const uint32_t q_rows = base + wg * 64 * 128;
+  const uint32_t do_rows = base + L::kDO + wg * 64 * 128;
+
+  // The two warpgroups take turns at issuing their products (named
+  // barriers 1 and 2), twice a tile: S and dP, then dQ.  So one's
+  // exponentials and dS overlap the other's products.  Warpgroup 0 goes
+  // first; warpgroup 1's last arrival is left on barrier 1 at exit.
+  const int my_turn = 1 + wg, their_turn = 2 - wg;
+  if (wg == 1) tpf::named_bar_arrive(their_turn, kConsumerThreads);
+  tpf::mbar_wait(q_full, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+    const int n0 = j * kBN;
+    float sc[64], dp[64];
+
+    // S = Q K^T and dP = dO V^T, two groups in flight
+    tpf::mbar_wait(k_full(s), parity);
+    tpf::named_bar_sync(my_turn, kConsumerThreads);
+    tpf::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t slice = (kk % 4) * 32;
+      tpf::wgmma_m64n128_ss(sc, tpf::desc_sw128(q_rows + (kk / 4) * kBM * 128 + slice),
+                           tpf::desc_sw128(k_tile(s) + (kk / 4) * kBN * 128 + slice), kk > 0);
+    }
+    tpf::wgmma_commit();
+    tpf::mbar_wait(do_full, 0);  // returns at once after the first tile
+    tpf::mbar_wait(v_full(s), parity);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t slice = (kk % 4) * 32;
+      tpf::wgmma_m64n128_ss(dp, tpf::desc_sw128(do_rows + (kk / 4) * kBM * 128 + slice),
+                           tpf::desc_sw128(v_tile(s) + (kk / 4) * kBN * 128 + slice), kk > 0);
+    }
+    tpf::wgmma_commit();
+    tpf::named_bar_arrive(their_turn, kConsumerThreads);
+
+    // P = exp2(S * scale * log2(e) - lse * log2(e)) while dP runs; the
+    // mask only where the tile crosses the diagonal or T: column 8n + e of
+    // chunk n is a visible key of row r when 8n + e < limit[r]
+    tpf::wgmma_wait<1>();
+    tpf::fence_regs(sc);
+    if ((causal && n0 + kBN - 1 > row0) || n0 + kBN > t) {
+      int limit[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) limit[r] = (causal ? min(t, rows[r] + 1) : t) - n0 - col;
+#pragma unroll
+      for (int n = 0; n < kBN / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * n + (e & 1) >= limit[e >> 1]) sc[4 * n + e] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      sc[i] = tpf::exp2_approx(fmaf(sc[i], c2, -row_lse[(i >> 1) & 1]));
+    // dS = P * (dP - delta), from the unrounded P, rounded to bf16 as the
+    // A operand of dQ += dS K
+    tpf::wgmma_wait<0>();
+    tpf::fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dp[i] = sc[i] * (dp[i] - row_delta[(i >> 1) & 1]);
+    uint32_t da[kBN / 16][4];
+#pragma unroll
+    for (int c = 0; c < kBN / 16; ++c) tpf::pack_a(da[c], dp, c);
+
+    // dQ += dS K, K read transposed from shared memory, one issue per 64
+    // columns of D; K's stage is released only after this product
+    tpf::named_bar_sync(my_turn, kConsumerThreads);
+    tpf::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kBN / 16; ++c) {
+#pragma unroll
+      for (int b = 0; b < kBoxes; ++b)
+        tpf::wgmma_m64n64_rs_tb(acc[b], da[c],
+                                tpf::desc_sw128(k_tile(s) + b * kBN * 128 + c * 2048));
+    }
+    tpf::wgmma_commit();
+    tpf::named_bar_arrive(their_turn, kConsumerThreads);
+    tpf::wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < kBoxes; ++b) tpf::fence_regs(acc[b]);
+    tpf::mbar_arrive(empty(s));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] < t) {
+      __nv_bfloat16* qrow = dq + ((size_t)bh * t + rows[r]) * D;
+#pragma unroll
+      for (int b = 0; b < kBoxes; ++b) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          *reinterpret_cast<__nv_bfloat162*>(qrow + 64 * b + 8 * n + col) = __floats2bfloat162_rn(
+              acc[b][4 * n + 2 * r] * scale, acc[b][4 * n + 2 * r + 1] * scale);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace dq90
+
+// ---------------------------------------------------------------------------
 // f32: full-precision FMA, one warp per output row, one column per lane
 // ---------------------------------------------------------------------------
 
@@ -904,6 +1156,34 @@ cudaError_t dkv_bf16_route(const BwdArgs& a, void* dk, void* dv) {
 }
 
 template <int D>
+cudaError_t dq90_launch(const BwdArgs& a, void* dq) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = tpf::tensor_map_bf16(&tq, a.q, a.bh, a.t, D, dq90::kBM);
+  if (err == cudaSuccess) err = tpf::tensor_map_bf16(&tk, a.k, a.bh, a.t, D, dq90::kBN);
+  if (err == cudaSuccess) err = tpf::tensor_map_bf16(&tv, a.v, a.bh, a.t, D, dq90::kBN);
+  if (err == cudaSuccess) err = tpf::tensor_map_bf16(&tdo, a.dout, a.bh, a.t, D, dq90::kBM);
+  if (err != cudaSuccess) return err;
+  constexpr int bytes = dq90::Layout<D>::kBytes;
+  err = cudaFuncSetAttribute(dq90::dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = (a.t + dq90::kBM - 1) / dq90::kBM * a.bh;
+  dq90::dq_kernel<D><<<blocks, dq90::kThreads, bytes, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(dq), a.bh, a.t, a.scale,
+      a.causal, tpf::heads_per_group(a.bh, a.t, D));
+  return cudaGetLastError();
+}
+
+// bf16 dQ by head dim: the Hopper design at 64 and 128, mma.sync below.
+template <int D>
+cudaError_t dq_bf16_route(const BwdArgs& a, void* dq) {
+  if constexpr (D >= 64) {
+    return dq90_launch<D>(a, dq);
+  } else {
+    return dq_bf16<D>(a, dq);
+  }
+}
+
+template <int D>
 cudaError_t dq_f32(const BwdArgs& a, void* dq) {
   const dim3 grid((a.t + kRowsF - 1) / kRowsF, a.bh);
   dq_f32_kernel<D><<<grid, kRowsF * 32, 0, a.stream>>>(
@@ -958,7 +1238,7 @@ extern "C" int tpf_flash_attn_bwd_dq(const void* q, const void* k, const void* v
   const BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
                   static_cast<const float*>(delta), bh, t, scale, causal,
                   static_cast<cudaStream_t>(stream)};
-  TPF_DISPATCH(dtype, d, dq_bf16, dq_f32, a, dq);
+  TPF_DISPATCH(dtype, d, dq_bf16_route, dq_f32, a, dq);
 }
 
 // As above; dk and dv: [bh, t, d] in the inputs' dtype.
@@ -981,8 +1261,8 @@ extern "C" int tpf_flash_attn_bwd_smem(int d, int which) {
   switch (d) {
     case 16: return which ? dkv_smem_bytes<16>() : dq_smem_bytes<16>();
     case 32: return which ? dkv_smem_bytes<32>() : dq_smem_bytes<32>();
-    case 64: return which ? dkv90::Layout<64>::kBytes : dq_smem_bytes<64>();
-    case 128: return which ? dkv90::Layout<128>::kBytes : dq_smem_bytes<128>();
+    case 64: return which ? dkv90::Layout<64>::kBytes : dq90::Layout<64>::kBytes;
+    case 128: return which ? dkv90::Layout<128>::kBytes : dq90::Layout<128>::kBytes;
     default: return -1;
   }
 }

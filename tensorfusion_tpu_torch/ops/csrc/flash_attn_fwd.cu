@@ -710,8 +710,8 @@ extern "C" int tpf_flash_attn_fwd_smem(int d) {
 
 // Host nanoseconds of one tensor-map encode, the mean of `reps` encodes of
 // a [bh, t, d] bf16 map over `ptr` after one to warm up (host work only;
-// nothing is launched); -1 when the encode fails.  A forward launch at
-// D = 64 or 128 encodes three maps, a dK/dV launch four.
+// nothing is launched); -1 when the encode fails.  A bf16 launch at
+// D = 64 or 128 encodes three maps (forward) or four (dQ, dK/dV).
 extern "C" int tpf_tensor_map_encode_ns(const void* ptr, int bh, int t, int d, int reps) {
   CUtensorMap map;
   if (reps <= 0 || tpf::tensor_map_bf16(&map, ptr, bh, t, d, fwd90::kBN) != cudaSuccess) return -1;

@@ -103,19 +103,20 @@ def test_backward_kernels_match_plain(gen, dtype, causal, t, d):
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("t", [1000, 1100])
 def test_ring_kernels_at_ragged_t(gen, t, d, causal):
-    """The TMA-ring kernels (bf16 forward and dK/dV at D = 64 and 128) at
-    a T that is no multiple of a tile and spans several ring stages:
+    """The TMA-ring kernels (bf16 forward, dQ and dK/dV at D = 64 and 128)
+    at a T that is no multiple of a tile and spans several ring stages:
     chip_smoke.py's tolerances."""
     q, k, v = _qkv(gen, (2, t, d), torch.bfloat16)
     out, lse = flash_fwd_cuda(q, k, v, d ** -0.5, causal)
     ref, ref_lse = flash_attention_plain(q, k, v, d ** -0.5, causal)
     args = _bwd_inputs(gen, 2, t, d, torch.bfloat16, causal)
+    dq = flash_bwd_dq_cuda(*args, d ** -0.5, causal)
     dk, dv = flash_bwd_dkv_cuda(*args, d ** -0.5, causal)
-    _, ref_dk, ref_dv = flash_attention_bwd_plain(*args, d ** -0.5, causal)
+    ref_dq, ref_dk, ref_dv = flash_attention_bwd_plain(*args, d ** -0.5, causal)
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() < 2e-2
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
-    for name, got, want in (("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+    for name, got, want in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
         assert torch.isfinite(got).all(), name
         rel = ((got.float() - want.float()).abs().mean()
                / want.float().abs().mean()).item()
@@ -126,8 +127,9 @@ def test_ring_kernels_at_ragged_t(gen, t, d, causal):
 @pytest.mark.parametrize("d", [64, 128])
 def test_ring_kernels_read_nothing_of_the_next_head(gen, d, causal):
     """bh = 2 at a ragged T, head 1 holding values 1e4 times larger: head
-    0's out, lse, dk and dv equal those of head 0 run alone, bit for bit.
-    A tile that runs past T must be zero-filled, not read from head 1."""
+    0's out, lse, dq, dk and dv equal those of head 0 run alone, bit for
+    bit.  A tile that runs past T must be zero-filled, not read from head
+    1."""
     t = 1000
     q, k, v, do, _, _ = _bwd_inputs(gen, 2, t, d, torch.bfloat16, causal)
     big = torch.tensor([1.0, 1e4], device="cuda")[:, None, None]
@@ -136,12 +138,13 @@ def test_ring_kernels_read_nothing_of_the_next_head(gen, d, causal):
     delta = (do.float() * ref_out.float()).sum(-1)
     scale = d ** -0.5
     both = (*flash_fwd_cuda(q, k, v, scale, causal),
+            flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal),
             *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal))
+    head0 = (q[:1], k[:1], v[:1], do[:1], lse[:1], delta[:1], scale, causal)
     alone = (*flash_fwd_cuda(q[:1], k[:1], v[:1], scale, causal),
-             *flash_bwd_dkv_cuda(q[:1], k[:1], v[:1], do[:1], lse[:1],
-                                 delta[:1], scale, causal))
+             flash_bwd_dq_cuda(*head0), *flash_bwd_dkv_cuda(*head0))
     torch.cuda.synchronize()
-    for name, b, a in zip(("out", "lse", "dk", "dv"), both, alone):
+    for name, b, a in zip(("out", "lse", "dq", "dk", "dv"), both, alone):
         assert torch.isfinite(a).all(), name
         assert torch.equal(b[:1], a), name
 
