@@ -9,16 +9,31 @@ and make.  It builds the kernels (flash forward, flash backward) and
 libtpf_limiter.so from the checkout (failing if ptxas reports a spill),
 holds every kernel against its plain PyTorch version on the card and
 times it at the main path's shape and at a long one, then drives the
-port's two paths at Llama-3-8B width (random weights from fixed seeds),
-each through the
-metered client with the kernel launch counts set to 0 just before it and
-read just after: serving (greedy requests, 32 layers) and training
-(AdamW steps, 8 layers, batch 4 x 1024).  It checks the answers of both
-(tokens and logits; gradients against the dense attention path) and ends
-with the metered train-step bench (``tensorfusion_tpu_torch.bench_train``).
-Each phase prints one JSON line; any failure raises and exits non-zero.
-The line before the last two is the kernel table, the line before the
-last is nvidia-smi's name and power limit, and the last line is
+port's three paths at Llama-3-8B width (random weights from fixed seeds),
+each with the kernel launch counts set to 0 just before it and read just
+after:
+
+- serving: greedy ``generate`` requests, 32 layers, through the metered
+  client;
+- the engine: continuous batching (``serving.ServingEngine`` over a
+  ``serving.LlamaRunner`` pool of 1024 16-token blocks, one CUDA graph
+  per decode bucket) at 32 layers on the serving weights, three waves of
+  ragged requests joining a running batch, a shared system prefix and
+  speculative (n-gram) requests, with the pool's footprint charged on a
+  metered client while it serves; then one decode step replayed and run
+  eagerly, beside its bytes bound.  The paged path launches none of the
+  kernels (its attention is gather and einsum, as the reference's);
+- training: AdamW steps, 8 layers, batch 4 x 1024, metered.
+
+It checks the answers of each: tokens and logits (the engine's f32
+tokens against ``generate``, its graphed step against the eager one, its
+bf16 logits against f32), gradients against the dense attention path,
+and ends with the metered train-step bench
+(``tensorfusion_tpu_torch.bench_train``).  Each phase prints one JSON
+line; any failure raises and exits non-zero.  The line before the last
+two is the kernel table (its ``launches_by_path`` has ``serve``,
+``engine`` and ``train``), the line before the last is nvidia-smi's name
+and power limit, and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -31,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import random
 import subprocess
 import sys
 import threading
@@ -47,6 +63,9 @@ TRAIN_LAYERS = 8                           # AdamW state of 32 would not fit
 TRAIN_SHAPE = (4, 1024)                    # train batch x sequence
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 LONG_SHAPE = (32, 4096, 128)               # [B*H, T, D]: more tiles per block
+ENGINE_POOL = (1025, 16)                   # blocks (1024 + scratch) x block size
+ENGINE_BATCH, ENGINE_CHUNK = 8, 256        # max batch, prefill tokens a step
+ENGINE_WAVES = (0, 20, 40)                 # engine steps at which waves arrive
 
 
 def emit(phase: str, **fields) -> None:
@@ -412,7 +431,8 @@ def phase_serve_check(torch, llama, params, cfg):
     # path lands about 2e-2 (max |d| / max |logits|) from f32, so the
     # kernel is held to the dense path's own error, with 1.5x room.
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen, device=DEVICE)
+    prompt = prompt1 = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                                     device=DEVICE)
     flash, _ = llama.prefill(params, prompt, cfg, cache_len=256)
     full, _ = llama.prefill(params, prompt,
                             dataclasses.replace(cfg, attn_impl="full"), cache_len=256)
@@ -444,6 +464,315 @@ def phase_serve_check(torch, llama, params, cfg):
     emit("serve_check", bf16_prefill_logits_rel=bf16,
          bf16_rule="flash_vs_f32 <= 1.5 * full_vs_f32",
          f32_tokens_equal=True, f32_tokens=got.tolist())
+    # the bf16 check of the paged path holds its logits to the same two
+    return {"prompt": prompt1, "full": full, "exact": exact}
+
+
+# -- the paged-KV engine ------------------------------------------------------
+
+
+def _engine_traffic(vocab):
+    """The engine phase's requests, from fixed seeds: three waves of 8
+    (tenant, prompt, max_new_tokens), prompts ragged over 64-1024 tokens,
+    8 of them on one 512-token system prefix (one of those is the bare
+    system prompt, a full-prompt registry hit), max_new_tokens 32-128;
+    then 4 prompts of a repeated 16-token phrase for the speculative
+    run."""
+    rng = random.Random(5)
+
+    def tokens(n):
+        return [rng.randrange(vocab) for _ in range(n)]
+
+    system = tokens(512)
+    waves = []
+    for w in range(len(ENGINE_WAVES)):
+        wave = []
+        for i in range(8):
+            n, new = rng.randrange(64, 1025), rng.randrange(32, 129)
+            if (w, i) == (2, 7):
+                prompt = list(system)
+            elif i % 3 == 0:
+                prompt = system + tokens(max(n - 512, 1))
+            else:
+                prompt = tokens(n)
+            wave.append((f"w{w}r{i}", prompt, new))
+        waves.append(wave)
+    spec = [(f"s{i}", tokens(16) * 8, 32) for i in range(4)]
+    return waves, spec
+
+
+def _run_engine(torch, engine, waves, at_steps):
+    """Submit ``waves[k]`` when the engine has taken ``at_steps[k]`` steps,
+    step it on this thread until every request is done; returns each
+    request's tokens by tenant and the wall seconds."""
+    outs = {}
+
+    def emit(seq, toks, done, info):
+        if done:
+            outs[seq.tenant] = (list(seq.tokens), info.get("finish_reason"))
+    pending = list(zip(at_steps, waves))
+    total = sum(len(w) for w in waves)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(outs) < total:
+        while pending and engine.steps >= pending[0][0]:
+            for tenant, prompt, new in pending.pop(0)[1]:
+                engine.submit(prompt, new, tenant=tenant, emit=emit)
+        engine.step()
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
+
+
+def _spec_vs_plain(torch, serving, runner, requests, vocab):
+    """``requests`` through two engines on ``runner``: plain, then with
+    an n-gram draft (``spec_k`` 3, so verify steps of 4 tokens).  Returns
+    the speculative engine's counters and, per request, the index of the
+    first token where the two runs differ (None where they agree)."""
+    outs = []
+    for draft in (None, serving.NGramDraft(n=2)):
+        engine = serving.ServingEngine(runner, max_batch=ENGINE_BATCH,
+                                       prefill_chunk_tokens=ENGINE_CHUNK,
+                                       draft=draft, spec_k=3)
+        got, wall = _run_engine(torch, engine, [requests], [0])
+        _check_outs(got, requests, vocab, "speculative engine" if draft else "engine")
+        if engine.snapshot()["kv"]["used"] != 0:
+            raise RuntimeError(f"the pool kept blocks: {engine.snapshot()['kv']}")
+        outs.append(got)
+    spec = engine.snapshot()["spec"]
+    if spec["steps"] == 0 or not any(k[0] == "verify" for k in runner.graphs):
+        raise RuntimeError(f"no verify step ran: {spec}")
+    first_diff = {t: next((i for i, (a, b) in enumerate(zip(outs[0][t][0], outs[1][t][0]))
+                           if a != b), None) for t, _, _ in requests}
+    return {**spec, "wall_s": wall, "first_diff": first_diff,
+            "tokens_equal_plain": all(d is None for d in first_diff.values())}
+
+
+def _check_outs(outs, requests, vocab, label):
+    for tenant, prompt, new in requests:
+        toks, reason = outs[tenant]
+        if reason != "length" or len(toks) != new or not all(
+                0 <= t < vocab for t in toks):
+            raise RuntimeError(f"{label}: request {tenant} ended {reason} with "
+                               f"{len(toks)} of {new} tokens")
+
+
+def _decode_bound(llama_leaves, cfg, params, positions, rates):
+    """Least time of one decode step of ``len(positions)`` rows: the bytes
+    it must move (every weight read once, the K/V of each row's context
+    read and this step's written) over the memory rate, against its
+    FLOPs over the bf16 rate."""
+    item = params["lm_head"].element_size()
+    weights = llama_leaves({k: v for k, v in params.items() if k != "tok_emb"})
+    b = len(positions)
+    per_token_kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * item
+    context = sum(p + 1 for p in positions)
+    # every weight, the b embedding rows, each row's K/V read, this step's written
+    moved = (sum(p.numel() * p.element_size() for p in weights)
+             + b * cfg.dim * item + per_token_kv * (context + b))
+    matmul = sum(p.numel() for p in weights if p.dim() == 2)
+    flops = 2 * matmul * b + 4 * cfg.n_layers * cfg.n_heads * cfg.head_dim * context
+    bytes_ms, ops_ms = moved / rates["bytes"] * 1e3, flops / rates["bf16"] * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_moved": moved, "flops": flops}
+
+
+def phase_engine(torch, ops, llama, serving, bench_train, limiter_lib, params, cfg,
+                 rates, smi):
+    """Continuous batching through ServingEngine + LlamaRunner at
+    Llama-3-8B width and depth, bf16, on the serving phase's weights: a
+    pool of ENGINE_POOL blocks charged on a metered client while it
+    serves, decode buckets captured as CUDA graphs up front, three waves
+    of requests joining a running batch, then four requests speculative
+    (n-gram draft) and not, compared token by token.  (The comparison is
+    held exactly in f32, in engine_check: in bf16 the logits come out of
+    the lm_head product rounded to bf16, so a decode step's 8-row product
+    and a verify step's 32-row one may break a near-tie differently.)
+    Then one decode step of the fullest batch, replayed and run eagerly,
+    against its bound."""
+    kvpool = serving.kvpool
+    num_blocks, block_size = ENGINE_POOL
+    waves, spec_reqs = _engine_traffic(cfg.vocab_size)
+    runner = serving.LlamaRunner(params, cfg, num_blocks=num_blocks,
+                                 block_size=block_size, device=DEVICE)
+    steps = []
+    decode = runner.decode
+
+    def recorded(tokens, positions, tables):
+        t0 = time.perf_counter()
+        out = decode(tokens, positions, tables)
+        steps.append((time.perf_counter() - t0, tokens, positions, tables))
+        return out
+    runner.decode = recorded
+    with bench_train.worker_segment(limiter_lib, WORK / "engine", "engine",
+                                    DEVICE) as client:
+        if not client.charge_hbm(runner.nbytes):
+            raise RuntimeError("the KV pool's footprint was refused")
+        try:
+            ops.reset_launch_counts()
+            runner.warmup(ENGINE_BATCH, 1024, ENGINE_CHUNK)
+            warm = {"graphs": len(runner.graphs), "capture_s": runner.capture_s}
+            engine = serving.ServingEngine(runner, max_batch=ENGINE_BATCH,
+                                           prefill_chunk_tokens=ENGINE_CHUNK)
+            outs, wall = _run_engine(torch, engine, waves, ENGINE_WAVES)
+            snap = engine.snapshot()
+            requests = [r for w in waves for r in w]
+            _check_outs(outs, requests, cfg.vocab_size, "engine")
+            spec = _spec_vs_plain(torch, serving, runner, spec_reqs, cfg.vocab_size)
+            launches = ops.launch_counts()
+            held = client.hbm_charged_bytes
+        finally:
+            client.charge_hbm(-runner.nbytes)
+        released = client.hbm_charged_bytes
+    del runner.decode
+    if held != runner.nbytes or released != 0:
+        raise RuntimeError(f"pool footprint {runner.nbytes} B: client held "
+                           f"{held} while serving and {released} after")
+    if snap["kv"]["used"] != 0:
+        raise RuntimeError(f"the pool kept blocks: {snap['kv']}")
+
+    # one decode step of the fullest batch, replayed and eager
+    _, tokens, positions, tables = max(
+        (s for s in steps if len(s[1]) == ENGINE_BATCH), key=lambda s: sum(s[2]))
+    bp = kvpool.pow2_bucket(len(tokens))
+    tab = runner._pad_tables(tables, bp)
+    graph = runner.graphs[("decode", bp, tab.shape[1])]
+    graphed = runner.decode(tokens, positions, tables)
+    replay_ms = time_ms(torch, graph.graph.replay, 20)
+    s0 = time.perf_counter()
+    for _ in range(10):
+        runner.decode(tokens, positions, tables)
+    call_ms = (time.perf_counter() - s0) * 1e3 / 10
+    tok, pos, tabt = (torch.from_numpy(a).to(DEVICE) for a in (
+        _pad(tokens, bp), _pad(positions, bp), tab))
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    logits, _ = kvpool.paged_decode_step(params, tok, runner.cache, tabt, pos, cfg)
+    eager = logits.argmax(-1)[:len(tokens)].tolist()
+    eager_ms = (time.perf_counter() - s0) * 1e3
+    if eager != graphed:
+        raise RuntimeError("the eager decode step disagrees with the graph's")
+    host_ms = sorted(s[0] * 1e3 for s in steps)
+    emit("engine", nvidia_smi=smi, dim=cfg.dim, n_layers=cfg.n_layers,
+         dtype=str(cfg.dtype),
+         pool={"num_blocks": num_blocks, "block_size": block_size,
+               "nbytes": runner.nbytes},
+         max_batch=ENGINE_BATCH, prefill_chunk_tokens=ENGINE_CHUNK,
+         requests=len(requests), waves_at_steps=list(ENGINE_WAVES),
+         wall_s=wall, tokens=snap["tokens"], tokens_per_s=snap["tokens"] / wall,
+         ttft_ms=snap["ttft"], batch_occupancy_pct=snap["batch_occupancy_pct"],
+         steps=snap["steps"], decode_steps=snap["decode_steps"],
+         prefill_chunks=snap["prefill_chunks"],
+         step_ms=engine.step_time.snapshot(),
+         decode_call_ms={"p50": host_ms[len(host_ms) // 2], "max": host_ms[-1]},
+         kv={k: snap["kv"][k] for k in ("peak_used", "prefix_hits_total",
+                                        "prefix_hit_tokens_total", "cow_copies_total",
+                                        "allocated_total", "released_total")},
+         spec=spec,
+         warmup=warm, graphs_captured=len(runner.graphs),
+         capture_s=runner.capture_s,
+         decode_step={"batch": len(tokens), "bucket": [bp, tab.shape[1]],
+                      "context_tokens": sum(p + 1 for p in positions),
+                      "graph_replay_ms": replay_ms, "graph_call_ms": call_ms,
+                      "eager_ms": eager_ms,
+                      **_decode_bound(llama._leaves, cfg, params, positions,
+                                      rates)},
+         hbm_charged_while_serving=held, hbm_charged_after=released,
+         kernel_launches=launches, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
+def _pad(values, n):
+    import numpy as np
+
+    out = np.zeros((n,), np.int32)
+    out[:len(values)] = values
+    return out
+
+
+def phase_engine_check(torch, llama, serving, params, cfg, ref):
+    """f32 at full width, 2 layers: engine tokens equal generate's for
+    ragged requests joining mid-flight; speculative tokens (verify graphs)
+    equal plain decode's; one graphed decode step equal to
+    kvpool's eager step on a copy of the pool; bf16 at 32 layers: the
+    paged prefill's last-position logits against the f32 dense run, held
+    to 1.5x the dense bf16 path's own distance (as serve_check holds the
+    kernel)."""
+    kvpool = serving.kvpool
+    # bf16, the serving weights: one 256-token chunk through a fresh pool
+    cache = kvpool.init_paged_cache(cfg, 17, 16, device=DEVICE)
+    table = torch.arange(1, 17, dtype=torch.int32, device=DEVICE)
+    paged, _ = kvpool.paged_prefill_chunk(params, ref["prompt"][0], cache, table,
+                                          0, cfg)
+    del cache
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    bf16 = {"paged_vs_f32": rel(paged, ref["exact"][0]),
+            "full_vs_f32": rel(ref["full"][0], ref["exact"][0]),
+            "paged_vs_full": rel(paged, ref["full"][0])}
+    if not (torch.isfinite(paged).all() and
+            bf16["paged_vs_f32"] <= 1.5 * bf16["full_vs_f32"]):
+        raise RuntimeError(f"bf16 paged prefill logits too far from f32: {bf16}")
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=2,
+                                attn_impl="full")
+    p32 = llama.init_params(cfg32, torch.Generator(device=DEVICE).manual_seed(8),
+                            device=DEVICE)
+    rng = random.Random(9)
+    requests = [(f"r{i}", [rng.randrange(cfg.vocab_size) for _ in range(n)], new)
+                for i, (n, new) in enumerate(((100, 12), (333, 8), (64, 20),
+                                              (700, 10), (257, 16)))]
+    runner32 = serving.LlamaRunner(p32, cfg32, num_blocks=257, block_size=16,
+                                   device=DEVICE)
+    engine = serving.ServingEngine(runner32, max_batch=4, prefill_chunk_tokens=128)
+    # one request joins every third step, while the others decode
+    outs, _ = _run_engine(torch, engine, [[r] for r in requests],
+                          [3 * i for i in range(len(requests))])
+    _check_outs(outs, requests, cfg.vocab_size, "f32 engine")
+    for tenant, prompt, new in requests:
+        want = llama.generate(p32, torch.tensor([prompt], device=DEVICE), new, cfg32,
+                              device=DEVICE)[0].tolist()
+        if outs[tenant][0] != want:
+            raise RuntimeError(f"f32 engine tokens of {tenant} differ from "
+                               f"generate: {outs[tenant][0]} vs {want}")
+
+    # speculative decoding through the verify graphs, token for token
+    spec = _spec_vs_plain(torch, serving, runner32, _engine_traffic(cfg.vocab_size)[1],
+                          cfg.vocab_size)
+    if not spec["tokens_equal_plain"]:
+        raise RuntimeError(f"f32 speculative tokens differ from plain decode: {spec}")
+
+    # a graphed decode step against the eager one on a copy of the pool
+    acct = kvpool.BlockAccount(257, 16)
+    toks, positions, tables = [], [], []
+    for tenant, prompt, _ in requests[:3]:
+        acct.ensure(tenant, len(prompt) + 1)
+        tables.append(acct.table(tenant))
+        toks.append(runner32.prefill(prompt, tables[-1], 0))
+        positions.append(len(prompt))
+    copy = {kind: [t.clone() for t in layers] for kind, layers in runner32.cache.items()}
+    graphed = runner32.decode(toks, positions, tables)
+    bp = kvpool.pow2_bucket(len(toks))
+    tab = torch.from_numpy(runner32._pad_tables(tables, bp)).to(DEVICE)
+    logits, _ = kvpool.paged_decode_step(
+        p32, torch.from_numpy(_pad(toks, bp)).to(DEVICE), copy, tab,
+        torch.from_numpy(_pad(positions, bp)).to(DEVICE), cfg32)
+    eager = logits.argmax(-1)[:len(toks)].tolist()
+    page_err = max(((a - b).abs() - (2e-5 + 2e-4 * b.abs())).max().item()
+                   for kind in ("k", "v")
+                   for a, b in zip(runner32.cache[kind], copy[kind]))
+    if graphed != eager or page_err > 0:
+        raise RuntimeError(f"graphed decode differs from the eager step: tokens "
+                           f"{graphed} vs {eager}, page excess {page_err:.3g}")
+    emit("engine_check", bf16_prefill_logits_rel=bf16,
+         bf16_rule="paged_vs_f32 <= 1.5 * full_vs_f32",
+         f32_engine_tokens_equal_generate=True,
+         f32_requests=[[len(p), new] for _, p, new in requests],
+         f32_graphs=sorted(map(list, runner32.graphs)), f32_spec=spec,
+         graph_vs_eager={"tokens_equal": True, "page_excess_over_tol": page_err,
+                         "tolerance": "rtol 2e-4, atol 2e-5"})
 
 
 def _train_batch(torch, vocab, shape, seed):
@@ -616,7 +945,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from tensorfusion_tpu_torch import bench_train, hardware, ops
+    from tensorfusion_tpu_torch import bench_train, hardware, ops, serving
     from tensorfusion_tpu_torch.models import llama
     from tensorfusion_tpu_torch.ops import _build as build
 
@@ -632,8 +961,11 @@ def main() -> int:
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attn_impl="flash")
     params, serve_launches = phase_serve(torch, ops, llama, bench_train,
                                          limiter_lib, cfg)
-    phase_serve_check(torch, llama, params, cfg)
-    del params
+    ref = phase_serve_check(torch, llama, params, cfg)
+    engine_launches = phase_engine(torch, ops, llama, serving, bench_train,
+                                   limiter_lib, params, cfg, rates, smi)
+    phase_engine_check(torch, llama, serving, params, cfg, ref)
+    del params, ref
     torch.cuda.empty_cache()
 
     cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
@@ -646,9 +978,11 @@ def main() -> int:
 
     kernels = [{"name": k.name, "route": k.route, "source": k.source,
                 "replaces": k.replaces,
-                "launches": serve_launches[k.name] + train_launches[k.name],
+                "launches": serve_launches[k.name] + train_launches[k.name]
+                + engine_launches[k.name],
                 "launches_by_path": {"serve": serve_launches[k.name],
-                                     "train": train_launches[k.name]},
+                                     "train": train_launches[k.name],
+                                     "engine": engine_launches[k.name]},
                 **{key: rows[k.name][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "plain", "library", "pair_ms")

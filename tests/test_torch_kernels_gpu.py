@@ -267,3 +267,91 @@ def test_memory_is_charged_once_and_released(gen, limiter_lib, tmp_path):
     gc.collect()
     assert client.hbm_charged_bytes == 0
     client.close()
+
+
+def _paged_setup(gen, dtype=torch.float32):
+    """A small f32 model and a LlamaRunner on the card with three ragged
+    sequences prefilled (tables of block size 4)."""
+    from tensorfusion_tpu_torch.serving import LlamaRunner
+
+    cfg = llama.LlamaConfig(vocab_size=1024, dim=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, ffn_dim=512, dtype=dtype)
+    params = llama.init_params(cfg, gen)
+    runner = LlamaRunner(params, cfg, num_blocks=32, block_size=4)
+    lens = [5, 11, 8]
+    # room for 3 decode steps and a 3-token verify past each prompt
+    tables = [[1, 2, 3], [4, 5, 6, 7, 16], [8, 9, 10, 17]]
+    firsts = []
+    for n, table in zip(lens, tables):
+        prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                               device="cuda").tolist()
+        firsts.append(runner.prefill(prompt, table, 0))
+    return cfg, params, runner, lens, tables, firsts
+
+
+def _clone(cache):
+    return {kind: [t.clone() for t in layers] for kind, layers in cache.items()}
+
+
+def _assert_pages_close(got, want):
+    for kind in ("k", "v"):
+        for a, b in zip(got[kind], want[kind]):
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+def _padded(runner, tables, b):
+    tab = runner._pad_tables(tables, b)
+    return torch.from_numpy(tab).cuda()
+
+
+def test_graphed_decode_and_verify_match_eager_paged_steps(gen):
+    """LlamaRunner.decode / verify replay one CUDA graph per bucket; each
+    equals kvpool's eager step on a copy of the same pool: tokens equal,
+    written pages within f32 rtol 2e-4 / atol 2e-5."""
+    from tensorfusion_tpu_torch.serving import kvpool
+
+    cfg, params, runner, lens, tables, toks = _paged_setup(gen)
+    for step in range(3):
+        ref = _clone(runner.cache)
+        got = runner.decode(toks, lens, tables)
+        tok = torch.tensor(toks + [0], dtype=torch.int32, device="cuda")
+        pos = torch.tensor(lens + [0], dtype=torch.int32, device="cuda")
+        logits, _ = kvpool.paged_decode_step(params, tok, ref,
+                                             _padded(runner, tables, 4), pos, cfg)
+        assert got == logits.argmax(-1)[:3].tolist(), step
+        _assert_pages_close(runner.cache, ref)
+        toks, lens = got, [n + 1 for n in lens]
+    assert set(runner.graphs) == {("decode", 4, 8)}
+    ref = _clone(runner.cache)
+    rows = [[t, 7, 9] for t in toks]
+    got = runner.verify(rows, lens, tables)
+    tok = torch.tensor(rows + [[0, 0, 0]], dtype=torch.int32, device="cuda")
+    pos = torch.tensor(lens + [0], dtype=torch.int32, device="cuda")
+    logits, _ = kvpool.paged_verify_step(params, tok, ref,
+                                         _padded(runner, tables, 4), pos, cfg)
+    assert got == logits.argmax(-1)[:3].tolist()
+    _assert_pages_close(runner.cache, ref)
+    assert ("verify", 4, 3, 8) in runner.graphs and runner.capture_s > 0
+
+
+def test_graph_replays_see_copied_and_written_pages(gen):
+    """copy_blocks and write_blocks write the pool in place, so a later
+    replay of an already captured graph reads them: a sequence decoded
+    from copied (or shipped) pages gives the token of its original."""
+    cfg, params, runner, lens, tables, toks = _paged_setup(gen)
+    runner.warmup(max_batch=4, prompt_len=16, chunk=8)
+    captured = dict(runner.graphs)
+    assert ("decode", 4, 8) in captured
+    ptrs = [t.data_ptr() for t in runner.cache["k"] + runner.cache["v"]]
+    want = runner.decode(toks, lens, tables)
+    runner.copy_blocks([(4, 12), (5, 13), (6, 14), (7, 15), (16, 18)])
+    k, v = runner.read_blocks(tables[2])
+    runner.write_blocks([20, 21, 22, 23], k, v)
+    assert torch.equal(runner.read_blocks([20, 21, 22, 23])[0], k)
+    assert [t.data_ptr() for t in runner.cache["k"] + runner.cache["v"]] == ptrs
+    # the decode above wrote position lens[i] of each original; the copies
+    # hold it too, so decode them from the same position again
+    got = runner.decode(toks, lens, [tables[0], [12, 13, 14, 15, 18],
+                                     [20, 21, 22, 23]])
+    assert got == want
+    assert runner.graphs == captured       # replays of the warm-up graphs
