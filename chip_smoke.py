@@ -9,7 +9,7 @@ and make.  It builds the kernels (flash forward, flash backward) and
 libtpf_limiter.so from the checkout (failing if ptxas reports a spill),
 holds every kernel against its plain PyTorch version on the card and
 times it at the main path's shape and at a long one, then drives the
-port's three paths at Llama-3-8B width (random weights from fixed seeds),
+port's four paths at Llama-3-8B width (random weights from fixed seeds),
 each with the kernel launch counts set to 0 just before it and read just
 after:
 
@@ -23,17 +23,24 @@ after:
   metered client while it serves; then one decode step replayed and run
   eagerly, beside its bytes bound.  The paged path launches none of the
   kernels (its attention is gather and einsum, as the reference's);
-- training: AdamW steps, 8 layers, batch 4 x 1024, metered.
+- training: AdamW steps, 8 layers, batch 4 x 1024, metered;
+- remote execution: a ``remoting.RemoteVTPUWorker`` that owns the card,
+  metered, and a ``RemoteDevice`` over loopback; the 8-layer weights PUT
+  resident, a ``remote_jit`` last-position forward (flash) called at
+  each serving shape, a ``step_resident`` chain and a micro-batched
+  burst from two connections.
 
 It checks the answers of each: tokens and logits (the engine's f32
 tokens against ``generate``, its graphed step against the eager one, its
-bf16 logits against f32), gradients against the dense attention path,
-and ends with the metered train-step bench
-(``tensorfusion_tpu_torch.bench_train``).  Each phase prints one JSON
-line; any failure raises and exits non-zero.  The line before the last
-two is the kernel table (its ``launches_by_path`` has ``serve``,
-``engine`` and ``train``), the line before the last is nvidia-smi's name
-and power limit, and the last line is
+bf16 logits against f32; the remote logits' argmax against the local
+forward's and their bf16 distance from f32), gradients against the
+dense attention path, the remote worker's charges against the local
+FLOP estimate and the resident bytes, and ends with the metered
+train-step bench (``tensorfusion_tpu_torch.bench_train``).  Each phase
+prints one JSON line; any failure raises and exits non-zero.  The line
+before the last two is the kernel table (its ``launches_by_path`` has
+``serve``, ``engine``, ``train`` and ``remote``), the line before the
+last is nvidia-smi's name and power limit, and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -66,6 +73,7 @@ LONG_SHAPE = (32, 4096, 128)               # [B*H, T, D]: more tiles per block
 ENGINE_POOL = (1025, 16)                   # blocks (1024 + scratch) x block size
 ENGINE_BATCH, ENGINE_CHUNK = 8, 256        # max batch, prefill tokens a step
 ENGINE_WAVES = (0, 20, 40)                 # engine steps at which waves arrive
+REMOTE_CALLS = 12                          # timed remote EXECUTEs per shape
 
 
 def emit(phase: str, **fields) -> None:
@@ -925,6 +933,260 @@ def phase_train_check(torch, llama, params, cfg):
          f32_loss=[loss.item(), loss_full.item()])
 
 
+def _last_logits(llama, cfg):
+    """The remote path's function: a forward of ``cfg`` that returns the
+    last position's f32 logits [B, vocab] (the lm_head product of that
+    position alone)."""
+
+    def last_logits(params, tokens):
+        x = params["tok_emb"][tokens.long()]
+        for layer in params["layers"]:
+            x = llama._layer(cfg, layer, x)
+        x = llama._rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+        return llama._mm(x, params["lm_head"]).float()
+
+    return last_logits
+
+
+def _quantiles_ms(samples):
+    s = sorted(samples)
+    return {"p50": s[len(s) // 2] * 1e3,
+            "p99": s[min(int(0.99 * (len(s) - 1)), len(s) - 1)] * 1e3,
+            "n": len(s)}
+
+
+def phase_remote(torch, ops, llama, remoting, estimate_flops, bench_train,
+                 limiter_lib, cfg, smi):
+    """Remote execution on the card: a RemoteVTPUWorker that owns it,
+    metered on a fresh limiter segment, and a RemoteDevice in this
+    process over loopback.  The 8-layer Llama-3-8B-width weights (bf16,
+    from a fixed seed) are PUT resident; ``remote_jit`` of the
+    last-position forward (flash attention) runs REMOTE_CALLS times at
+    each MAIN_SHAPES shape, its kernel launches counted from 0 over
+    those calls alone.  Each shape's result is held against the local
+    forward on the same weights (argmax equal; logits no further from
+    an f32 dense run than 1.5x the bf16 dense path's own distance), the
+    worker's charge against the local estimate_flops, and the resident
+    bytes against the weights'.  Then a step_resident chain of 8
+    decoder-layer steps against the local chain, and a micro-batched
+    burst of 4 submits from two connections against the unfused
+    results; at the end every buffer is freed and the charge is 0."""
+    t_phase = time.perf_counter()
+    tree_map = torch.utils._pytree.tree_map
+    leaves = torch.utils._pytree.tree_leaves
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    params = llama.init_params(cfg, gen, device=DEVICE)
+    host = tree_map(lambda t: t.cpu(), params)
+    weights_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    fn = _last_logits(llama, cfg)
+    shapes = [(b, t, torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
+                                   device=DEVICE)) for b, t in MAIN_SHAPES]
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    # local references, before the counted window: the same call on the
+    # card (timed), the dense bf16 path, and the dense path in f32
+    local = {}
+    full = _last_logits(llama, dataclasses.replace(cfg, attn_impl="full"))
+    exact_fn = _last_logits(llama, dataclasses.replace(
+        cfg, dtype=torch.float32, attn_impl="full"))
+    p32 = _float(params)
+    for b, t, tokens in shapes:
+        want = fn(params, tokens)
+        local_s = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            fn(params, tokens)
+            torch.cuda.synchronize()
+            local_s.append(time.perf_counter() - s0)
+        local[(b, t)] = {
+            "logits": want, "ms": sorted(local_s)[2] * 1e3,
+            "full": full(params, tokens), "exact": exact_fn(p32, tokens),
+            "mflops": max(int(estimate_flops(fn, (params, tokens), {}) / 1e6), 1)}
+    del p32
+    torch.cuda.empty_cache()
+
+    with bench_train.worker_segment(limiter_lib, WORK / "remote", "remote",
+                                    DEVICE) as meter:
+        worker = remoting.RemoteVTPUWorker(meter_client=meter,
+                                           max_resident_bytes=4 * weights_bytes,
+                                           device=DEVICE)
+        worker.start()
+        try:
+            dev = remoting.RemoteDevice(worker.url, timeout_s=600)
+            dev2 = remoting.RemoteDevice(worker.url, timeout_s=600)
+            try:
+                s0 = time.perf_counter()
+                rparams = tree_map(dev.put, host)
+                put_s = time.perf_counter() - s0
+                charged_resident = meter.hbm_charged_bytes
+                # micro-batchable: the counted calls, one at a time, run
+                # alone; the burst below fuses behind a plug
+                remote = dev.remote_jit(fn, microbatch=True)
+                compile_s = {}
+                for b, t, tokens in shapes:
+                    s0 = time.perf_counter()
+                    remote.compile_for(rparams, tokens.cpu())
+                    compile_s[f"{b}x{t}"] = time.perf_counter() - s0
+                # the counted window: the remote calls alone
+                wire0, rx0 = dict(dev.wire_stats), dict(dev.rx_stats)
+                launches0, mflops0 = meter.launches, meter.charged_mflops
+                got, round_trips = {}, {}
+                ops.reset_launch_counts()
+                for b, t, tokens in shapes:
+                    host_tokens = tokens.cpu()
+                    round_trips[(b, t)] = []
+                    for _ in range(REMOTE_CALLS):
+                        s0 = time.perf_counter()
+                        got[(b, t)] = remote(rparams, host_tokens)
+                        round_trips[(b, t)].append(time.perf_counter() - s0)
+                launches = ops.launch_counts()
+                calls = REMOTE_CALLS * len(shapes)
+                out_bytes = dev.wire_stats["wire_bytes"] - wire0.get("wire_bytes", 0)
+                in_bytes = dev.rx_stats["wire_bytes"] - rx0.get("wire_bytes", 0)
+                charged = {"launches": meter.launches - launches0,
+                           "mflops": meter.charged_mflops - mflops0}
+
+                # where a call's time goes: the client's and the worker's
+                # spans (mean ms) of 3 traced calls at the first shape
+                from tensorfusion_tpu_torch.tracing import Tracer
+
+                dev.tracer = Tracer(service="chip-smoke")
+                for _ in range(3):
+                    remote(rparams, shapes[0][2].cpu())
+                spans = {}
+                for span in dev.tracer.finished():
+                    spans.setdefault(span["name"], []).append(span["dur_us"] / 1e3)
+                span_ms = {name: sum(v) / len(v) for name, v in spans.items()}
+                dev.tracer = None
+
+                # step_resident: 8 decoder-layer steps on layer 0's weights,
+                # the hidden state resident, each step freeing the last
+                layer_fn = dev.remote_jit(lambda layer, x: llama._layer(cfg, layer, x))
+                tokens = shapes[0][2]
+                x0 = params["tok_emb"][tokens.long()]
+                state = dev.put(x0.cpu())
+                want_x = x0
+                chain_launch0 = ops.launch_counts()["flash_attn_fwd"]
+                s0 = time.perf_counter()
+                for _ in range(8):
+                    state = layer_fn.step_resident(rparams["layers"][0], state,
+                                                   free=state)
+                chained = state.fetch()
+                chain_s = time.perf_counter() - s0
+                chain_launches = ops.launch_counts()["flash_attn_fwd"] - chain_launch0
+                for _ in range(8):
+                    want_x = llama._layer(cfg, params["layers"][0], want_x)
+                chain_rel = rel(chained, want_x.cpu())
+                state.free()
+
+                # micro-batched burst: a plug, then 4 submits alternating
+                # between two connections, of one opted-in executable
+                b, t, _ = shapes[1]
+                burst_tokens = [torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
+                                              device=DEVICE).cpu() for _ in range(4)]
+                mbs = [remote, dev2.remote_jit(fn, microbatch=True)]
+                mbs[1].compile_for(rparams, burst_tokens[0])
+                unfused = [remote(rparams, tk) for tk in burst_tokens]
+                d0 = dev.info()["dispatch"]
+                mflops_b0 = meter.charged_mflops
+                plug = remote.submit(rparams, shapes[0][2].cpu())
+                futs = [mbs[i % 2].submit(rparams, tk)
+                        for i, tk in enumerate(burst_tokens)]
+                fused = [f.result(timeout=600) for f in futs]
+                plug.result(timeout=600)
+                d1 = dev.info()["dispatch"]
+                burst = {"requests": len(futs) + 1,
+                         "dispatches": d1["launches"] - d0["launches"],
+                         "microbatched_requests": d1["microbatched_requests"]
+                         - d0["microbatched_requests"],
+                         "charged_mflops": meter.charged_mflops - mflops_b0,
+                         "results_equal_unfused": all(
+                             torch.equal(f, u) for f, u in zip(fused, unfused))}
+                want_burst_mflops = local[shapes[0][:2]]["mflops"] + \
+                    len(futs) * local[(b, t)]["mflops"]
+
+                for leaf in leaves(rparams):
+                    leaf.free()
+                info = dev.info()
+                released = meter.hbm_charged_bytes
+            finally:
+                dev.close()
+                dev2.close()
+        finally:
+            worker.stop()
+
+    rows = []
+    for b, t, _ in shapes:
+        ref = local[(b, t)]
+        out = got[(b, t)].to(DEVICE)
+        bf16 = {"remote_vs_local": rel(out, ref["logits"]),
+                "remote_vs_f32": rel(out, ref["exact"]),
+                "full_vs_f32": rel(ref["full"], ref["exact"])}
+        rows.append({"batch": b, "prompt": t,
+                     "equal_local": torch.equal(out, ref["logits"]),
+                     "argmax_equal_local": torch.equal(out.argmax(-1),
+                                                       ref["logits"].argmax(-1)),
+                     "max_abs_logit_diff_vs_local":
+                         (out - ref["logits"]).abs().max().item(),
+                     "bf16_rel": bf16, "local_ms": ref["ms"],
+                     "execute_ms": _quantiles_ms(round_trips[(b, t)]),
+                     "local_mflops": ref["mflops"]})
+    row = {"nvidia_smi": smi, "dim": cfg.dim, "n_layers": cfg.n_layers,
+           "vocab": cfg.vocab_size, "dtype": str(cfg.dtype), "attn_impl": cfg.attn_impl,
+           "weights_bytes": weights_bytes, "put_s": put_s,
+           "upload_gb_s": weights_bytes / put_s / 1e9,
+           "resident_bytes_charged": charged_resident,
+           "resident_bytes_after_free": released,
+           "worker_resident_bytes_after_free": info["resident_bytes"],
+           "compile_s": compile_s, "calls": calls, "calls_per_shape": REMOTE_CALLS,
+           "kernel_launches": launches,
+           "launches_per_call": launches["flash_attn_fwd"] / calls,
+           "charged": charged,
+           "local_estimate_mflops": REMOTE_CALLS * sum(r["local_mflops"] for r in rows),
+           "wire_bytes_per_call": {"out": out_bytes / calls, "in": in_bytes / calls},
+           "shapes": rows,
+           "traced_call_span_ms": span_ms,
+           "step_resident": {"steps": 8, "s": chain_s, "flash_launches": chain_launches,
+                             "rel_vs_local": chain_rel},
+           "burst": burst, "burst_expected_mflops": want_burst_mflops,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "phase_s": time.perf_counter() - t_phase}
+    emit("remote", **row)
+
+    want_mflops = row["local_estimate_mflops"]
+    problems = []
+    if charged_resident != weights_bytes or released != 0 or info["resident_bytes"]:
+        problems.append(f"resident bytes charged {charged_resident} of {weights_bytes}, "
+                        f"{released} after FREE (worker {info['resident_bytes']})")
+    if launches["flash_attn_fwd"] != cfg.n_layers * calls:
+        problems.append(f"flash kernel ran {launches} times over {calls} remote "
+                        f"calls of {cfg.n_layers} layers")
+    if charged != {"launches": calls, "mflops": want_mflops}:
+        problems.append(f"worker charged {charged}, the local estimate is "
+                        f"{want_mflops} MFLOPs over {calls} launches")
+    for r in rows:
+        # the same ops and kernel on the same card: the wire adds nothing
+        if not r["equal_local"]:
+            problems.append(f"remote logits differ from local at {r['batch']}x"
+                            f"{r['prompt']}: max abs {r['max_abs_logit_diff_vs_local']}")
+        if not r["argmax_equal_local"]:
+            problems.append(f"remote argmax differs from local at {r['batch']}x{r['prompt']}")
+        if not r["bf16_rel"]["remote_vs_f32"] <= 1.5 * r["bf16_rel"]["full_vs_f32"]:
+            problems.append(f"remote logits too far from f32: {r['bf16_rel']}")
+    if chain_launches != 8 or not chain_rel <= 1e-2:
+        problems.append(f"step_resident chain: {chain_launches} launches, "
+                        f"rel {chain_rel:.3g} vs local")
+    if not burst["results_equal_unfused"] or \
+            burst["charged_mflops"] != want_burst_mflops:
+        problems.append(f"micro-batched burst: {burst}, want {want_burst_mflops} MFLOPs")
+    if problems:
+        raise RuntimeError("remote phase: " + "; ".join(problems))
+    return launches
+
+
 def phase_bench_train(bench_train, limiter_lib):
     """The metered train-step bench at its own configuration."""
     result = bench_train.run(limiter_lib=str(limiter_lib))
@@ -945,7 +1207,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from tensorfusion_tpu_torch import bench_train, hardware, ops, serving
+    from tensorfusion_tpu_torch import bench_train, hardware, ops, remoting, serving
+    from tensorfusion_tpu_torch.client.runtime import estimate_flops
     from tensorfusion_tpu_torch.models import llama
     from tensorfusion_tpu_torch.ops import _build as build
 
@@ -974,15 +1237,19 @@ def main() -> int:
     phase_train_check(torch, llama, params, cfg)
     del params
     torch.cuda.empty_cache()
+    remote_launches = phase_remote(torch, ops, llama, remoting, estimate_flops,
+                                   bench_train, limiter_lib, cfg, smi)
+    torch.cuda.empty_cache()
     phase_bench_train(bench_train, limiter_lib)
 
     kernels = [{"name": k.name, "route": k.route, "source": k.source,
                 "replaces": k.replaces,
                 "launches": serve_launches[k.name] + train_launches[k.name]
-                + engine_launches[k.name],
+                + engine_launches[k.name] + remote_launches[k.name],
                 "launches_by_path": {"serve": serve_launches[k.name],
                                      "train": train_launches[k.name],
-                                     "engine": engine_launches[k.name]},
+                                     "engine": engine_launches[k.name],
+                                     "remote": remote_launches[k.name]},
                 **{key: rows[k.name][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "plain", "library", "pair_ms")

@@ -1,5 +1,6 @@
-"""Environment names the port's client reads, and the QoS ladder its
-serving engine schedules by (the same contract as the JAX package's; see
+"""Environment names the port's client, remote worker, tracer and
+profiler read, and the QoS ladder its serving engine and dispatcher
+schedule by (the same contract as the JAX package's; see
 tensorfusion_tpu/constants.py)."""
 
 ENV_SHM_PATH = "TPF_SHM_PATH"                  # worker segment path
@@ -7,6 +8,21 @@ ENV_HYPERVISOR_URL = "TPF_HYPERVISOR_URL"      # node-local bootstrap endpoint
 ENV_POD_NAME = "TPF_POD_NAME"
 ENV_POD_NAMESPACE = "TPF_POD_NAMESPACE"
 ENV_LIMITER_LIB = "TPF_LIMITER_LIB"
+ENV_REMOTING_QOS = "TPF_REMOTING_QOS"          # remote tenant's QoS class
+ENV_REMOTING_DISPATCH = "TPF_REMOTING_DISPATCH"  # worker policy: wfq|fifo
+ENV_REMOTING_QUANT = "TPF_REMOTING_QUANT"      # q8 wire encoding: 1 on, 0 off
+ENV_REMOTING_PREFETCH_DEPTH = "TPF_REMOTING_PREFETCH_DEPTH"  # worker H2D overlap
+ENV_TRACE_SAMPLE = "TPF_TRACE_SAMPLE"          # head-based trace sampling
+ENV_PROF = "TPF_PROF"                          # tpfprof attribution: 0 disables
+ENV_PROF_BIN_S = "TPF_PROF_BIN_S"              # attribution bin width (s)
+ENV_PROF_BUNDLE_DIR = "TPF_PROF_BUNDLE_DIR"    # auto postmortem bundle dir
+
+#: remote dispatcher queue depths: deep enough for pipelining clients
+#: (depths of 8-32), shallow enough that queue wait stays bounded
+DEFAULT_MAX_QUEUE_PER_TENANT = 64
+DEFAULT_MAX_QUEUE_GLOBAL = 256
+#: ceiling on how many compatible requests fuse into one dispatch
+DEFAULT_MAX_MICROBATCH = 8
 
 QOS_LOW = "low"
 QOS_MEDIUM = "medium"

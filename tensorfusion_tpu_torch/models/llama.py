@@ -5,9 +5,11 @@ Same parameter tree as the reference (``init_params``), with ``[in, out]``
 weights used as ``x @ w``, so a JAX tree converts by a plain copy
 (models/convert.py).  Grouped-query attention with ``attn_impl`` of
 "full" (dense), "flash" (the Hopper kernels of ops/flash_attention.py on
-CUDA tensors, forward and backward) or "chunked" (blockwise, O(T x block)
-memory, differentiable).  Serving: a preallocated KV cache (optionally
-int8), batched ``prefill``, ``decode_step`` and greedy ``generate``.
+CUDA tensors, forward and backward), "chunked" (blockwise, O(T x block)
+memory, differentiable) or "ring" (dense, as the reference is without a
+mesh; the mesh comes with the multi-device slice).  Serving: a
+preallocated KV cache (optionally int8), batched ``prefill``,
+``decode_step`` and greedy ``generate``.
 Training: ``loss_fn`` (logsumexp cross-entropy) and ``make_train_step``
 (AdamW as ``optax.adamw``), with ``remat`` through
 ``torch.utils.checkpoint`` where the reference uses ``jax.checkpoint``.
@@ -46,7 +48,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
-    attn_impl: str = "full"   # "full" | "flash" | "chunked" ("ring": later)
+    attn_impl: str = "full"   # "full" | "flash" | "chunked" | "ring" (dense without a mesh)
     attn_block: int = 512     # KV block for attn_impl="chunked"
     #: recompute each layer's activations in the backward
     #: (torch.utils.checkpoint) instead of keeping them
@@ -163,10 +165,9 @@ def _attention(config: LlamaConfig, p, x, return_kv: bool = False):
     v = torch.repeat_interleave(v, rep, dim=2)
     q, k, v = (z.transpose(1, 2) for z in (q, k, v))      # [B, H, T, D]
 
-    if config.attn_impl == "ring":
-        raise NotImplementedError(
-            "attn_impl='ring' (sequence parallelism) comes with the "
-            "multi-device slice of the port")
+    # "ring" takes the sequence-parallel path only with a mesh; with none
+    # (every call of this port so far) it is the dense branch below, as
+    # in the reference
     if config.attn_impl == "flash":
         out = flash_attention(q, k, v, causal=True)
     elif config.attn_impl == "chunked":

@@ -1,7 +1,14 @@
-"""Remote execution of the port.  Only the dispatcher's admission
-vocabulary is here so far (``dispatch.py``), which the serving engine
-shares; the worker, client and wire protocol come with a later slice."""
+"""Remote execution of the port, part 1: the TPFR wire protocol
+(``protocol``), the QoS dispatcher (``dispatch``), the program format
+(``program``), a single-device worker (``worker``) and its client
+(``client``).  Serving over the wire, state and peers come with later
+parts."""
 
+from .client import (RemoteBuffer, RemoteBusyError, RemoteDeadlineError,
+                     RemoteDevice, RemoteExecutionError)
 from .dispatch import BusyError, LatencyRecorder, qos_weight
+from .worker import RemoteVTPUWorker
 
-__all__ = ["BusyError", "LatencyRecorder", "qos_weight"]
+__all__ = ["BusyError", "LatencyRecorder", "RemoteBuffer", "RemoteBusyError",
+           "RemoteDeadlineError", "RemoteDevice", "RemoteExecutionError",
+           "RemoteVTPUWorker", "qos_weight"]

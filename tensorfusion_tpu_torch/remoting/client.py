@@ -1,0 +1,652 @@
+"""Client of the port's remote execution: run torch functions on a remote
+worker (``remoting/worker.py``).
+
+The single-device half of ``tensorfusion_tpu/remoting/client.py``.
+``RemoteDevice(url).remote_jit(fn)`` exports ``fn`` locally over fake
+CPU tensors of the call's signature (no card and no data needed; see
+``remoting/program.py``), ships the ``torch.export`` archive to the
+worker once per signature (COMPILE, with the FLOP estimate of the
+port's ``client.runtime.estimate_flops`` as ``mflops_hint``), and
+thereafter sends only argument tensors per call.  ``fn`` is an
+``nn.Module`` or a function of tensor pytrees; arguments are torch
+tensors, numpy arrays, or :class:`RemoteBuffer` handles to tensors made
+resident with :meth:`RemoteDevice.put`.  Results come back as CPU torch
+tensors in ``fn``'s output structure (bf16 has no numpy type without
+``ml_dtypes``).
+
+Transport, as in the reference: a HELLO token handshake
+(``TPF_REMOTING_TOKEN``) that negotiates the wire version, the QoS
+class (``qos=`` or ``TPF_REMOTING_QOS``) and q8 replies (``quantize=``
+or ``TPF_REMOTING_QUANT``); a reader thread that matches replies to
+requests by ``seq``, so ``wrapped.submit(...)`` pipelines many calls on
+one connection; structured BUSY / DEADLINE_EXCEEDED errors (the
+synchronous wrapper retries BUSY with jittered backoff); one reconnect
+attempt on a dropped connection; optional client-side tracing
+(``tracer=``) whose wire span's context rides the EXECUTE and adopts
+the worker's span tree.
+
+Left out until the multi-device slice: ``ShardedRemoteBuffer``, the
+sharded layouts and the ``_UploadStream`` of sharded shard PUTs; until
+the control-plane part: ``from_connection``.
+"""
+
+from __future__ import annotations
+
+import functools
+import itertools
+import logging
+import os
+import random
+import socket
+import threading
+from concurrent.futures import Future
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from .. import constants
+from ..client.runtime import estimate_flops
+from ..clock import default_clock
+from . import program, protocol
+from .protocol import recv_message, send_message
+
+log = logging.getLogger("tpf_torch.remoting.client")
+
+#: how many BUSY rejections the synchronous wrapper absorbs (with
+#: jittered backoff) before giving up — a saturated-but-moving worker
+#: drains well inside this; a wedged one should fail loudly
+MAX_BUSY_RETRIES = 32
+
+class RemoteExecutionError(RuntimeError):
+    pass
+
+
+class RemoteBusyError(RemoteExecutionError):
+    """The worker's dispatch queue rejected the request (bounded
+    backpressure).  ``retry_after_ms`` is the worker's drain estimate —
+    retry after sleeping about that long, with jitter, so a thundering
+    herd doesn't re-arrive in lockstep."""
+
+    def __init__(self, msg: str, retry_after_ms: int = 50):
+        super().__init__(msg)
+        self.retry_after_ms = max(int(retry_after_ms), 1)
+
+    def backoff_s(self, attempt: int = 1) -> float:
+        """Jittered, gently exponential sleep for retry ``attempt``."""
+        base = self.retry_after_ms / 1e3 * min(2 ** (attempt - 1), 8)
+        return min(base, 2.0) * (0.5 + random.random())
+
+
+class RemoteDeadlineError(RemoteExecutionError):
+    """The request's ``deadline_ms`` elapsed in the worker's queue; it
+    was never executed."""
+
+    def __init__(self, msg: str, queue_wait_ms: int = 0):
+        super().__init__(msg)
+        self.queue_wait_ms = int(queue_wait_ms)
+
+
+def _raise_reply_error(rmeta: Dict[str, Any]) -> None:
+    """Map a structured ERROR reply onto the typed exceptions."""
+    code = rmeta.get("code")
+    msg = rmeta.get("error", "remote error")
+    if code == "BUSY":
+        raise RemoteBusyError(msg, rmeta.get("retry_after_ms", 50))
+    if code == "DEADLINE_EXCEEDED":
+        raise RemoteDeadlineError(msg, rmeta.get("queue_wait_ms", 0))
+    raise RemoteExecutionError(msg)
+
+
+class RemoteBuffer:
+    """Handle to a device-resident tensor on the worker (upload once with
+    RemoteDevice.put, reference in remote_jit calls).  ``dtype`` is the
+    wire name ("bfloat16", "float32", ...)."""
+
+    def __init__(self, device: "RemoteDevice", buf_id: str, shape, dtype,
+                 device_id: int = 0):
+        self.device = device
+        self.buf_id = buf_id
+        self.shape = tuple(shape)
+        self.dtype = str(dtype)
+        self.device_id = device_id
+
+    def fetch(self) -> torch.Tensor:
+        _, _, bufs = self.device._rpc("FETCH", {"buf_id": self.buf_id}, [])
+        return bufs[0]
+
+    def free(self) -> None:
+        self.device._rpc("FREE", {"buf_ids": [self.buf_id]}, [])
+
+
+def _wire_dtype(leaf) -> str:
+    if isinstance(leaf, RemoteBuffer):
+        return leaf.dtype
+    if isinstance(leaf, torch.Tensor):
+        return protocol.WIRE_NAMES[leaf.dtype]
+    return np.asarray(leaf).dtype.name
+
+
+class RemoteDevice:
+    def __init__(self, url: str, token: Optional[str] = None,
+                 timeout_s: float = 300.0,
+                 protocol_version: int = protocol.VERSION,
+                 qos: Optional[str] = None,
+                 tracer=None,
+                 quantize: Optional[bool] = None):
+        # url: "tcp://host:port"
+        if url.startswith("tcp://"):
+            url = url[len("tcp://"):]
+        host, _, port = url.rpartition(":")
+        self.host, self.port = host or "127.0.0.1", int(port)
+        self.url = f"tcp://{self.host}:{self.port}"
+        self.token = token if token is not None else \
+            os.environ.get("TPF_REMOTING_TOKEN", "")
+        self.timeout_s = timeout_s
+        #: QoS class this tenant claims at HELLO — its weight in the
+        #: worker's fair dispatch queue (v4 workers; older ones ignore)
+        self.qos = qos or os.environ.get(constants.ENV_REMOTING_QOS,
+                                         "") or None
+        #: lossy q8 wire encoding — STRICTLY opt-in (ctor arg wins, else
+        #: TPF_REMOTING_QUANT=1/0); live only once the connection
+        #: negotiates v6
+        if quantize is None:
+            quantize = os.environ.get(constants.ENV_REMOTING_QUANT,
+                                      "") == "1"
+        self.quantize = bool(quantize)
+        #: whether requests try the adaptive zlib encoding (the worker's
+        #: per-connection rule, applied from this end)
+        self.compress = protocol.default_compress(self.host)
+        #: per-connection q8 scratch (reset per message; the send
+        #: serializer below is the lifetime guard)
+        # guarded by: _send_lock
+        self._pool = protocol.BufferPool()
+        #: cumulative outbound wire accounting (raw/wire bytes, per-enc
+        #: buffer counts)
+        # guarded by: _state_lock
+        self.wire_stats: Dict[str, int] = {}
+        #: cumulative inbound wire accounting — written only by the
+        #: reader thread; snapshot with dict()
+        self.rx_stats: Dict[str, int] = {}
+        #: the worker-resolved dispatch weight (HELLO_OK, v4 workers)
+        self.qos_weight: Optional[float] = None
+        #: optional span recorder (tracing.Tracer); None disables
+        #: client-side tracing
+        self.tracer = tracer
+        #: highest wire version this client will speak; pinning to 2
+        #: makes it frame-faithful to a v2 build (mixed-version tests)
+        self.protocol_version = protocol_version
+        #: negotiated per connection by the HELLO exchange
+        self._wire_version = 2
+        #: target's process-unique id, learned at HELLO (v9+, else None)
+        self.worker_uid: Optional[str] = None
+        self._sock: Optional[socket.socket] = None
+        self._send_lock = threading.Lock()
+        self._state_lock = threading.Lock()
+        self._pending: Dict[int, Future] = {}
+        self._seq = 0
+        self._mint = itertools.count(1)   # client-minted result ids
+        #: frame versions this client build decodes
+        self._accept = tuple(v for v in protocol.SUPPORTED_VERSIONS
+                             if v <= self.protocol_version)
+
+    # -- connection + pipelined transport ------------------------------
+
+    def _connect_locked(self) -> None:
+        """Dial + HELLO handshake + start the response reader (caller
+        holds _send_lock)."""
+        sock = socket.create_connection((self.host, self.port), timeout=60)
+        # pipelined small headers must not Nagle-stall behind buffers
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        # HELLO is always framed at v2 so any worker can read it; the
+        # version the connection actually runs at comes back in HELLO_OK
+        hello = {"token": self.token}
+        if self.protocol_version > 2:
+            hello["max_version"] = self.protocol_version
+        if self.qos is not None and self.protocol_version >= 4:
+            hello["qos"] = self.qos
+        if self.quantize and self.protocol_version >= 6:
+            hello["quant"] = True
+        send_message(sock, "HELLO", hello, [],
+                     version=protocol.HELLO_VERSION)
+        kind, meta, _ = recv_message(sock, accept=self._accept)
+        if kind != "HELLO_OK":
+            sock.close()
+            raise RemoteExecutionError(
+                meta.get("error", "remoting handshake failed"))
+        self._wire_version = max(2, min(self.protocol_version,
+                                        int(meta.get("version", 2))))
+        self.worker_uid = meta.get("worker_uid")
+        if meta.get("qos_weight") is not None:
+            self.qos_weight = float(meta["qos_weight"])
+        # per-request deadlines are enforced via Future.result(timeout_s);
+        # a socket timeout here would kill every pipelined request the
+        # moment one response gap exceeds it
+        sock.settimeout(None)
+        self._sock = sock
+        threading.Thread(target=self._read_loop, args=(sock,),
+                         name="tpf-remote-reader", daemon=True).start()
+
+    def _read_loop(self, sock: socket.socket) -> None:
+        try:
+            while True:
+                rx: Dict[str, int] = {}
+                kind, meta, bufs = recv_message(sock, accept=self._accept,
+                                                stats=rx)
+                meta["_rx_wire"] = rx
+                for k, v in rx.items():
+                    self.rx_stats[k] = self.rx_stats.get(k, 0) + v
+                with self._state_lock:
+                    fut = self._pending.pop(meta.get("seq"), None)
+                if fut is not None:
+                    fut.set_result((kind, meta, bufs))
+        except Exception as e:  # noqa: BLE001 - fail this socket's calls
+            with self._state_lock:
+                if self._sock is not sock:
+                    # a reconnect already replaced this socket; the new
+                    # connection's pending map is not ours to fail
+                    return
+                pending, self._pending = self._pending, {}
+            for fut in pending.values():
+                if not fut.done():
+                    fut.set_exception(ConnectionError(str(e)))
+
+    def close(self) -> None:
+        with self._send_lock:
+            if self._sock is not None:
+                try:
+                    self._sock.close()
+                except OSError:
+                    pass
+                self._sock = None
+            # the reader's reconnect guard makes it exit without touching
+            # _pending once the socket is swapped out, so close() fails
+            # in-flight requests itself — promptly, not after timeout_s
+            with self._state_lock:
+                pending, self._pending = self._pending, {}
+            for fut in pending.values():
+                if not fut.done():
+                    fut.set_exception(ConnectionError("device closed"))
+
+    def _quant_on(self) -> bool:
+        """q8 is live for this connection: opted in AND negotiated v6."""
+        return self.quantize and self._wire_version >= 6
+
+    def _merge_stats(self, st: Dict[str, int],
+                     extra: Optional[Dict[str, int]]) -> None:
+        with self._state_lock:
+            for k, v in st.items():
+                self.wire_stats[k] = self.wire_stats.get(k, 0) + v
+        if extra is not None:
+            for k, v in st.items():
+                extra[k] = extra.get(k, 0) + v
+
+    def _submit(self, kind: str, meta: Dict[str, Any], buffers,
+                compress: bool = True,
+                want_reply: bool = True,
+                stats: Optional[Dict[str, int]] = None
+                ) -> Optional[Future]:
+        """Send one request without waiting; the returned Future resolves
+        to (kind, meta, buffers) when its response arrives.  With
+        ``want_reply=False`` the request carries no seq and returns None
+        (fire-and-forget: quiet requests whose failures surface later).
+        ``stats`` additionally receives this send's wire accounting."""
+        st: Dict[str, int] = {}
+        with self._send_lock:
+            if self._sock is None:
+                # connect is serialized under the send lock: a racing
+                # sender must wait for the socket, not dial a second one
+                self._connect_locked()
+            fut: Optional[Future] = None
+            if want_reply:
+                self._seq += 1
+                seq = self._seq
+                wire_meta = dict(meta, seq=seq)
+                fut = Future()
+                with self._state_lock:
+                    self._pending[seq] = fut
+            else:
+                wire_meta = dict(meta)
+            try:
+                send_message(self._sock, kind, wire_meta, buffers,
+                             compress=compress and self.compress,
+                             version=self._wire_version,
+                             quantize=self._quant_on(),
+                             pool=self._pool, stats=st)
+            except (ConnectionError, OSError):
+                # one reconnect attempt (worker restarts, idle timeouts);
+                # every other in-flight request died with the old socket
+                with self._state_lock:
+                    if want_reply:
+                        self._pending.pop(seq, None)
+                    dead, self._pending = self._pending, {}
+                for f in dead.values():
+                    if not f.done():
+                        f.set_exception(ConnectionError("connection lost"))
+                if self._sock is not None:
+                    self._sock.close()
+                    self._sock = None
+                self._connect_locked()
+                if want_reply:
+                    with self._state_lock:
+                        self._pending[seq] = fut
+                send_message(self._sock, kind, wire_meta, buffers,
+                             compress=compress and self.compress,
+                             version=self._wire_version,
+                             quantize=self._quant_on(),
+                             pool=self._pool, stats=st)
+        self._merge_stats(st, stats)
+        return fut
+
+    def _result(self, fut: Future) -> Tuple:
+        rkind, rmeta, rbufs = fut.result(timeout=self.timeout_s)
+        if rkind == "ERROR":
+            _raise_reply_error(rmeta)
+        return rkind, rmeta, rbufs
+
+    def _rpc(self, kind: str, meta: Dict[str, Any], buffers) -> Tuple:
+        for attempt in (0, 1):
+            fut = self._submit(kind, meta, buffers)
+            try:
+                return self._result(fut)
+            except ConnectionError:
+                if attempt:
+                    raise
+                self.close()
+        raise RemoteExecutionError("unreachable")
+
+    def info(self) -> Dict[str, Any]:
+        _, meta, _ = self._rpc("INFO", {}, [])
+        return meta
+
+    def put(self, array, device_id: int = 0) -> RemoteBuffer:
+        """Upload one tensor (or numpy array) resident on the worker."""
+        arr = array if isinstance(array, torch.Tensor) else np.asarray(array)
+        meta: Dict[str, Any] = {}
+        if device_id and self._ensure_v3(f"PUT to device {device_id}"):
+            meta["device_id"] = device_id
+        _, rmeta, _ = self._rpc("PUT", meta, [arr])
+        return RemoteBuffer(self, rmeta["buf_id"], arr.shape,
+                            _wire_dtype(arr),
+                            device_id=rmeta.get("device_id", 0))
+
+    def _ensure_version(self, need: int, what: str) -> bool:
+        """True when the (established) connection speaks at least
+        ``need``; raises with a useful message otherwise."""
+        if self._sock is None:
+            self.info()     # dials + negotiates
+        if self._wire_version < need:
+            raise RemoteExecutionError(
+                f"{what} needs protocol v{need} but the worker only "
+                f"speaks v{self._wire_version}")
+        return True
+
+    def _ensure_v3(self, what: str) -> bool:
+        return self._ensure_version(3, what)
+
+    # ------------------------------------------------------------------
+
+    def remote_jit(self, fn: Callable, microbatch: bool = False) -> Callable:
+        """Wrap ``fn`` so calls execute on the remote worker.  ``fn``
+        takes and returns tensor pytrees; it is exported here, once per
+        argument signature.  The wrapper also exposes ``.submit(*args)
+        -> Future`` for pipelined calls, ``.compile_for(*args)``,
+        ``.step_resident(*args)`` (results stay on the worker, handles
+        come back at once) and ``.upload_arg(i, array)``.
+
+        ``microbatch=True`` declares the executable fusable: the worker
+        may run compatible concurrent requests (same executable, from
+        this or other connections) in one dispatch, each with its own
+        inputs and outputs."""
+        #: sig -> (exe_id, out_tree, out_sigs)
+        exe_ids: Dict[Any, Tuple[str, Any, list]] = {}
+        device = self
+
+        def leaf_sig(l):
+            if isinstance(l, (RemoteBuffer, torch.Tensor)):
+                return (tuple(l.shape), _wire_dtype(l))
+            arr = np.asarray(l)
+            return (arr.shape, arr.dtype.name)
+
+        def prepare(args):
+            leaves, treedef = pytree.tree_flatten(args)
+            sig = (tuple(leaf_sig(l) for l in leaves), treedef)
+            entry = exe_ids.get(sig)
+            if entry is None:
+                specs = [(shape, protocol.TORCH_DTYPES[dt])
+                         for shape, dt in sig[0]]
+                blob, out_tree, out_sigs = program.export_program(
+                    fn, specs, treedef)
+                try:
+                    metas = [torch.empty(shape, dtype=dt, device="meta")
+                             for shape, dt in specs]
+                    flops = estimate_flops(
+                        fn, pytree.tree_unflatten(metas, treedef), {})
+                    mflops = max(int(flops / 1e6), 1)
+                except Exception:  # noqa: BLE001
+                    log.debug("FLOP estimate failed; flat-rate QoS "
+                              "charge for this executable", exc_info=True)
+                    mflops = 1
+                cmeta: Dict[str, Any] = {"mflops_hint": mflops}
+                if microbatch:
+                    cmeta["microbatch"] = True
+                _, meta, _ = device._rpc(
+                    "COMPILE", cmeta, [np.frombuffer(blob, dtype=np.uint8)])
+                entry = (meta["exe_id"], out_tree,
+                         [(shape, protocol.WIRE_NAMES[dt])
+                          for shape, dt in out_sigs])
+                exe_ids[sig] = entry
+            return entry, leaves
+
+        def send_execute(entry, leaves, extra_meta=None,
+                         want_reply=True, stats=None) -> Optional[Future]:
+            """Fire the EXECUTE; returns the raw transport future (None
+            for fire-and-forget)."""
+            arg_refs: list = []
+            buffers: list = []
+            for leaf in leaves:
+                if isinstance(leaf, RemoteBuffer):
+                    arg_refs.append(leaf.buf_id)
+                else:
+                    arg_refs.append(None)
+                    buffers.append(leaf)
+            return device._submit(
+                "EXECUTE", dict(extra_meta or {}, exe_id=entry[0],
+                                arg_refs=arg_refs),
+                buffers, want_reply=want_reply, stats=stats)
+
+        def _deadline_meta(deadline_ms):
+            """deadline_ms rides the EXECUTE only on a v4 connection —
+            an older worker would ignore it silently."""
+            if deadline_ms is None:
+                return None
+            if device._wire_version < 4:
+                raise RemoteExecutionError(
+                    f"deadline_ms needs protocol v4 but the worker "
+                    f"only speaks v{device._wire_version}")
+            return {"deadline_ms": int(deadline_ms)}
+
+        fn_name = getattr(fn, "__name__", "") or type(fn).__name__
+
+        def _root_span():
+            """client.remote_jit root span, or None (tracing off)."""
+            if device.tracer is None:
+                return None
+            return device.tracer.start_span("client.remote_jit",
+                                            attrs={"fn": fn_name})
+
+        def _wire_span(root, exe_id):
+            """client.wire child span + the v5 ``trace`` meta carrying
+            its context, or (None, None)."""
+            if root is None or not root.sampled:
+                return None, None
+            wire = device.tracer.start_span("client.wire", parent=root,
+                                            attrs={"exe_id": exe_id})
+            if device._wire_version >= 5:
+                return wire, wire.ctx()
+            return wire, None
+
+        def _stats_enc(stats):
+            if not stats:
+                return "raw"
+            for enc in ("q8", "zlib"):
+                if stats.get(f"buffers_{enc}"):
+                    return enc
+            return "raw"
+
+        def _wire_done(wire, rmeta, stats=None):
+            """Adopt the server-side span tree and close the wire span."""
+            if wire is None:
+                return
+            device.tracer.adopt(rmeta.get("trace_spans") or ())
+            wire.finish(n_results=rmeta.get("n_results", 0),
+                        microbatched=rmeta.get("microbatched", 0),
+                        enc=_stats_enc(stats),
+                        wire_bytes=(stats or {}).get("wire_bytes", 0))
+
+        def _extra(root, entry, deadline_ms):
+            wire, trace_meta = _wire_span(root, entry[0])
+            extra = _deadline_meta(deadline_ms)
+            if trace_meta is not None:
+                extra = dict(extra or {}, trace=trace_meta)
+            return wire, extra, ({} if wire is not None else None)
+
+        @functools.wraps(fn)
+        def remote(*args, deadline_ms: Optional[int] = None):
+            root = _root_span()
+            try:
+                ser = device.tracer.start_span(
+                    "client.serialize", parent=root,
+                    attrs={"cached": bool(exe_ids)}) \
+                    if root is not None else None
+                entry, leaves = prepare(args)
+                if ser is not None:
+                    ser.finish(exe_id=entry[0])
+                reconnects = busy = 0
+                while True:
+                    wire, extra, stats = _extra(root, entry, deadline_ms)
+                    fut = send_execute(entry, leaves, extra_meta=extra,
+                                       stats=stats)
+                    try:
+                        _, rmeta, results = device._result(fut)
+                        _wire_done(wire, rmeta, stats)
+                        if root is not None:
+                            root.finish(busy_retries=busy,
+                                        reconnects=reconnects)
+                        return pytree.tree_unflatten(results, entry[1])
+                    except RemoteBusyError as e:
+                        if wire is not None:
+                            wire.finish(error="BUSY")
+                        busy += 1
+                        if busy > MAX_BUSY_RETRIES:
+                            raise
+                        default_clock().sleep(e.backoff_s(busy))
+                    except ConnectionError:
+                        if wire is not None:
+                            wire.finish(error="ConnectionError")
+                        reconnects += 1
+                        if reconnects > 1:
+                            raise
+                        device.close()
+            except BaseException as e:
+                if root is not None and root.end_s is None:
+                    root.finish(error=f"{type(e).__name__}: {e}"[:200])
+                raise
+
+        def submit(*args, deadline_ms: Optional[int] = None) -> Future:
+            """Pipelined call: a Future of the result pytree.  BUSY is
+            NOT retried here — a pipelined caller is exactly the load the
+            worker is pushing back on, so the Future fails with
+            RemoteBusyError and the caller applies its own flow
+            control."""
+            root = _root_span()
+            entry, leaves = prepare(args)
+            wire, extra, stats = _extra(root, entry, deadline_ms)
+            raw = send_execute(entry, leaves, extra_meta=extra,
+                               stats=stats)
+            out: Future = Future()
+
+            def _chain(f: Future):
+                try:
+                    rkind, rmeta, results = f.result()
+                    if rkind == "ERROR":
+                        if wire is not None:
+                            device.tracer.adopt(
+                                rmeta.get("trace_spans") or ())
+                            wire.finish(error=rmeta.get("code")
+                                        or "error")
+                        _raise_reply_error(rmeta)
+                    _wire_done(wire, rmeta, stats)
+                    if root is not None:
+                        root.finish()
+                    out.set_result(pytree.tree_unflatten(results,
+                                                         entry[1]))
+                except BaseException as e:  # noqa: BLE001
+                    if root is not None and root.end_s is None:
+                        root.finish(error=f"{type(e).__name__}")
+                    out.set_exception(e)
+
+            raw.add_done_callback(_chain)
+            return out
+
+        def compile_for(*args):
+            """Compile for this argument signature without executing
+            (tensors, arrays or RemoteBuffers work as examples)."""
+            return prepare(args)[0]
+
+        def step_resident(*args, free: Tuple = (), wait: bool = False,
+                          acked: bool = False):
+            """Execute with results kept resident on the worker and
+            return their handles WITHOUT waiting for any round trip:
+            result ids are client-minted and the request is fire-and-
+            forget, so a chain ``state = remote.step_resident(state)``
+            streams at the worker's service rate.  ``free=``
+            fire-and-forgets FREEs of no-longer-needed handles.  Errors
+            surface at the next synchronous boundary (a fetch).
+            ``wait=True`` makes the step one round trip; ``acked=True``
+            returns ``(handles, Future)`` of the completion ack."""
+            device._ensure_v3("step_resident (client-minted result ids)")
+            entry, leaves = prepare(args)
+            _, out_tree, out_sigs = entry
+            ctr = next(device._mint)
+            ids = [f"c-r{ctr}-{j}" for j in range(len(out_sigs))]
+            want_ack = wait or acked
+            fut = send_execute(
+                entry, leaves,
+                extra_meta={"keep_results": True, "result_ids": ids,
+                            **({} if want_ack else {"quiet": True})},
+                want_reply=want_ack)
+            if free:
+                dead = [h.buf_id for h in (free if isinstance(
+                    free, (tuple, list)) else (free,))]
+                device._submit("FREE", {"buf_ids": dead, "quiet": True},
+                               [], want_reply=False)
+            if wait:
+                device._result(fut)
+            handles = [RemoteBuffer(device, i, shape, dtype)
+                       for i, (shape, dtype) in zip(ids, out_sigs)]
+            out = pytree.tree_unflatten(handles, out_tree)
+            if acked and not wait:
+                return out, fut
+            return out
+
+        def upload_arg(index: int, array, *example_args) -> RemoteBuffer:
+            """Park argument ``index`` resident ahead of calls (on one
+            device: a plain resident buffer).  Needs the call signature:
+            example args, or an earlier call."""
+            if example_args:
+                prepare(example_args)
+            elif not exe_ids:
+                raise RemoteExecutionError(
+                    "upload_arg needs the call signature: pass example "
+                    "args (upload_arg(i, array, *example_args)) or call "
+                    "the function once first")
+            return device.put(array)
+
+        remote._tpf_remote = True  # noqa: SLF001
+        remote.submit = submit
+        remote.compile_for = compile_for
+        remote.upload_arg = upload_arg
+        remote.step_resident = step_resident
+        return remote

@@ -28,7 +28,9 @@ engine's tests drive.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -37,6 +39,49 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from . import kvpool
+
+
+class _CaptureGate:
+    """Eager runner calls enter shared; a graph capture enters alone,
+    once the shared holders have left, and holds new ones off until it
+    is done."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._shared = 0
+        self._capturing = False     # a capture holds or waits for the gate
+
+    @contextlib.contextmanager
+    def shared(self):
+        with self._cv:
+            while self._capturing:
+                self._cv.wait()
+            self._shared += 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._shared -= 1
+                self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        with self._cv:
+            while self._capturing:
+                self._cv.wait()
+            self._capturing = True
+            while self._shared:
+                self._cv.wait()
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._capturing = False
+                self._cv.notify_all()
+
+
+#: one gate for every runner of the process: they share the card
+_GATE = _CaptureGate()
 
 
 @dataclasses.dataclass
@@ -65,9 +110,13 @@ class LlamaRunner:
 
     Graphs are captured lazily on the calling thread, or up front by
     :meth:`warmup`.  A capture must not overlap work that another thread
-    launches on the card, so a caller that runs other threads on it
-    (a threaded ``PrefillPool``) calls :meth:`warmup` for every bucket
-    first.  A failed capture raises; nothing falls back to eager steps.
+    launches on the card: every runner's eager calls (``prefill`` and the
+    page moves) and every capture pass one process-wide gate, so a
+    capture waits for the eager calls in flight, and holds new ones off
+    until it is done (a threaded ``PrefillPool`` prefills on its own
+    runners while the engine's stepper captures a verify bucket or a
+    wider decode bucket lazily).  A failed capture raises; nothing falls
+    back to eager steps.
     All of a runner's graphs share one memory pool: their inputs and
     outputs live outside it, and a step reads its tokens right after its
     replay, so one graph's scratch may reuse another's.  The pool and the
@@ -124,18 +173,19 @@ class LlamaRunner:
         stream, as capture needs), so that run writes only into scratch
         block 0."""
         t0 = time.perf_counter()
-        inputs = [torch.zeros(a.shape, dtype=torch.int32, device=self.device)
-                  for a in arrays]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            out = torch.zeros_like(fn(*inputs))
-        torch.cuda.current_stream().wait_stream(side)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            out.copy_(fn(*inputs))
+        with _GATE.exclusive():
+            inputs = [torch.zeros(a.shape, dtype=torch.int32,
+                                  device=self.device) for a in arrays]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                out = torch.zeros_like(fn(*inputs))
+            torch.cuda.current_stream().wait_stream(side)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool):
+                out.copy_(fn(*inputs))
         g = StepGraph(inputs=inputs, out=out, graph=graph)
         self.graphs[key] = g
         self.capture_s += time.perf_counter() - t0
@@ -157,10 +207,11 @@ class LlamaRunner:
         m = kvpool.pow2_bucket(len(table), lo=4)
         tab = torch.zeros((m,), dtype=torch.int32)
         tab[:len(table)] = torch.tensor(table, dtype=torch.int32)
-        logits, _ = kvpool.paged_prefill_chunk(
-            self.params, torch.tensor(tokens, dtype=torch.int32, device=dev),
-            self.cache, tab.to(dev), start_pos, self.config)
-        return int(torch.argmax(logits)) if last else None
+        with _GATE.shared():
+            logits, _ = kvpool.paged_prefill_chunk(
+                self.params, torch.tensor(tokens, dtype=torch.int32, device=dev),
+                self.cache, tab.to(dev), start_pos, self.config)
+            return int(torch.argmax(logits)) if last else None
 
     def decode(self, tokens: List[int], positions: List[int],
                tables: List[List[int]]) -> List[int]:
@@ -198,26 +249,29 @@ class LlamaRunner:
         if not pairs:
             return
         dev = self.params["tok_emb"].device
-        src = torch.tensor([p[0] for p in pairs], device=dev)
-        dst = torch.tensor([p[1] for p in pairs], device=dev)
-        for layers in self.cache.values():
-            for layer in layers:
-                layer[dst] = layer[src]
+        with _GATE.shared():
+            src = torch.tensor([p[0] for p in pairs], device=dev)
+            dst = torch.tensor([p[1] for p in pairs], device=dev)
+            for layers in self.cache.values():
+                for layer in layers:
+                    layer[dst] = layer[src]
 
     def read_blocks(self, ids: List[int]):
         """Extract pages as CPU tensors ``(k, v)``, each
         ``[L, n, n_kv, bs, D]``."""
-        idx = torch.tensor(ids, device=self.params["tok_emb"].device)
-        return tuple(torch.stack([layer[idx] for layer in self.cache[kind]]).cpu()
-                     for kind in ("k", "v"))
+        with _GATE.shared():
+            idx = torch.tensor(ids, device=self.params["tok_emb"].device)
+            return tuple(torch.stack([layer[idx] for layer in self.cache[kind]]).cpu()
+                         for kind in ("k", "v"))
 
     def write_blocks(self, ids: List[int], k, v) -> None:
         """Inject pages into this pool's blocks, in place.  ``k``/``v``:
         ``[L, n, n_kv, bs, D]`` tensors or arrays."""
-        idx = torch.tensor(ids, device=self.params["tok_emb"].device)
-        for kind, pages in (("k", k), ("v", v)):
-            for layer, page in zip(self.cache[kind], pages):
-                layer[idx] = torch.as_tensor(page).to(layer.device, layer.dtype)
+        with _GATE.shared():
+            idx = torch.tensor(ids, device=self.params["tok_emb"].device)
+            for kind, pages in (("k", k), ("v", v)):
+                for layer, page in zip(self.cache[kind], pages):
+                    layer[idx] = torch.as_tensor(page).to(layer.device, layer.dtype)
 
     def warmup(self, max_batch: int, prompt_len: int, chunk: int) -> None:
         """Capture the decode graphs a serving shape will hit — every

@@ -355,3 +355,110 @@ def test_graph_replays_see_copied_and_written_pages(gen):
                                      [20, 21, 22, 23]])
     assert got == want
     assert runner.graphs == captured       # replays of the warm-up graphs
+
+
+def test_threaded_prefill_pool_with_lazily_captured_verify_graphs(gen):
+    """The worker topology: the engine's stepper on its own thread, and a
+    threaded PrefillPool launching eager prefill chunks on its threads,
+    while the stepper captures verify (and wider decode) buckets lazily,
+    since warmup captures decode buckets only.  Requests arrive in waves
+    so later prompts prefill while earlier ones verify.  No thread may
+    fail, and every request's tokens must equal generate's, in f32."""
+    import random
+    import threading
+    import time
+
+    from tensorfusion_tpu_torch.serving import (LlamaRunner, NGramDraft,
+                                                PrefillPool, ServingEngine)
+
+    cfg = llama.LlamaConfig(vocab_size=1024, dim=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, ffn_dim=512, dtype=torch.float32)
+    params = llama.init_params(cfg, gen)
+    runner = LlamaRunner(params, cfg, num_blocks=512, block_size=4)
+    pool = PrefillPool([LlamaRunner(params, cfg, num_blocks=512, block_size=4)
+                        for _ in range(2)], chunk_tokens=16)
+    engine = ServingEngine(runner, max_batch=4, prefill_chunk_tokens=32,
+                           draft=NGramDraft(n=2), spec_k=3, prefill_pool=pool)
+    rng = random.Random(3)
+    # repeated phrases, so the n-gram draft proposes and verify steps run
+    requests = [(f"r{i}", [rng.randrange(cfg.vocab_size) for _ in range(8)]
+                 * rng.randrange(4, 12), rng.randrange(12, 24))
+                for i in range(12)]
+    outs, failures = {}, []
+
+    def emit(seq, toks, done, info):
+        if done:
+            outs[seq.tenant] = list(seq.tokens)
+
+    hook = threading.excepthook
+    threading.excepthook = lambda args: failures.append(
+        f"{args.thread.name}: {args.exc_type.__name__}: {args.exc_value}")
+    runner.warmup(max_batch=1, prompt_len=16, chunk=16)
+    pool.start()
+    engine.start()
+    try:
+        for i in range(0, len(requests), 3):
+            for tenant, prompt, new in requests[i:i + 3]:
+                engine.submit(prompt, new, tenant=tenant, emit=emit)
+            time.sleep(0.05)
+        deadline = time.monotonic() + 180
+        while len(outs) < len(requests) and not failures and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+    finally:
+        engine.stop()
+        pool.stop()
+        threading.excepthook = hook
+    assert not failures, failures
+    assert len(outs) == len(requests)
+    assert any(k[0] == "verify" for k in runner.graphs)
+    assert pool.snapshot()["shipped_jobs"] == len(requests)
+    assert engine.snapshot()["spec"]["steps"] > 0
+    for tenant, prompt, new in requests:
+        want = llama.generate(params, torch.tensor([prompt], device="cuda"),
+                              new, cfg)[0].tolist()
+        assert outs[tenant] == want, tenant
+
+
+def test_remote_execute_launches_the_flash_kernel_per_layer(gen):
+    """A remote EXECUTE of an exported flash forward on a worker that owns
+    the card: one flash-forward launch per layer per call, the result
+    equal to the local forward's, resident weights charged and freed."""
+    from tensorfusion_tpu_torch.remoting import RemoteDevice, RemoteVTPUWorker
+
+    cfg = llama.LlamaConfig(vocab_size=1024, dim=512, n_layers=3, n_heads=4,
+                            n_kv_heads=2, ffn_dim=1024, dtype=torch.bfloat16,
+                            attn_impl="flash")
+    params = llama.init_params(cfg, gen)
+    host = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                           device="cuda")
+
+    def last_logits(p, t):
+        return llama.forward(p, t, cfg)[:, -1]
+
+    worker = RemoteVTPUWorker(device="cuda")
+    worker.start()
+    try:
+        dev = RemoteDevice(worker.url, timeout_s=120)
+        try:
+            remote_params = torch.utils._pytree.tree_map(dev.put, host)
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in torch.utils._pytree.tree_leaves(params))
+            assert dev.info()["resident_bytes"] == nbytes
+            remote = dev.remote_jit(last_logits)
+            remote.compile_for(remote_params, tokens.cpu())
+            ops.reset_launch_counts()
+            got = remote(remote_params, tokens.cpu())
+            launches = ops.launch_counts()["flash_attn_fwd"]
+            want = last_logits(params, tokens)
+            assert launches == cfg.n_layers
+            # the same ops and kernels on the same card as the local call
+            assert got.dtype == torch.float32 and torch.equal(got, want.cpu())
+            for leaf in torch.utils._pytree.tree_leaves(remote_params):
+                leaf.free()
+            assert dev.info()["resident_bytes"] == 0
+        finally:
+            dev.close()
+    finally:
+        worker.stop()

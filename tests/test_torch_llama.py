@@ -118,11 +118,20 @@ def test_attn_impls_match_jax(attn_impl, seq):
         np.asarray(jl.generate(jp, jnp.asarray(toks), 4, jcfg)))
 
 
-def test_ring_attention_is_a_later_slice():
+@pytest.mark.parametrize("seq", [16, 33])
+def test_ring_attention_without_a_mesh_matches_jax(seq):
+    """The reference takes the ring path only with a mesh
+    (tensorfusion_tpu/models/llama.py:173) and is dense otherwise; so is
+    the port, for forward and for generate's prefill and decode."""
     jcfg, tcfg = _configs(attn_impl="ring")
-    _, tp = _params(jcfg)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tl.forward(tp, torch.zeros((1, 4), dtype=torch.int64), tcfg)
+    jp, tp = _params(jcfg, seed=11)
+    toks = _tokens((2, seq), jcfg.vocab_size, seed=12)
+    want = jl.forward(jp, jnp.asarray(toks), jcfg)
+    got = tl.forward(tp, torch.from_numpy(toks), tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    np.testing.assert_array_equal(
+        tl.generate(tp, torch.from_numpy(toks), 6, tcfg, device="cpu").numpy(),
+        np.asarray(jl.generate(jp, jnp.asarray(toks), 6, jcfg)))
 
 
 @pytest.mark.parametrize("mode", ["w8a16", "w8a8"])

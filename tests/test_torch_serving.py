@@ -668,3 +668,47 @@ def test_llama_runner_needs_a_device_or_a_card(model, monkeypatch):
     runner = tr.LlamaRunner(tp, tcfg, num_blocks=4, block_size=4, device="cpu")
     runner.warmup(2, 8, 4)             # captures nothing on the CPU
     assert runner.graphs == {}
+
+
+def test_capture_gate_holds_eager_calls_off_a_capture():
+    """A capture waits for the eager runner calls in flight and holds new
+    ones off until it is done; eager calls do not hold each other off."""
+    import threading
+    import time
+
+    gate = tr._CaptureGate()
+    events = []
+    inside = threading.Event()
+    release = threading.Event()
+
+    def eager(tag, hold=None):
+        with gate.shared():
+            events.append(f"{tag}+")
+            if hold is not None:
+                inside.set()
+                hold.wait(10)
+            events.append(f"{tag}-")
+
+    def capture():
+        with gate.exclusive():
+            events.append("capture+")
+            time.sleep(0.05)
+            events.append("capture-")
+
+    first = threading.Thread(target=eager, args=("a", release))
+    first.start()
+    assert inside.wait(10)
+    eager("b")                                   # shared holders coexist
+    cap = threading.Thread(target=capture)
+    cap.start()
+    time.sleep(0.05)
+    assert "capture+" not in events              # waits for "a" to leave
+    late = threading.Thread(target=eager, args=("c",))
+    late.start()
+    time.sleep(0.05)
+    assert "c+" not in events                    # held off by the capture
+    release.set()
+    for t in (first, cap, late):
+        t.join(10)
+    assert events.index("a-") < events.index("capture+") < \
+        events.index("capture-") < events.index("c+")
