@@ -9,7 +9,7 @@ and make.  It builds the kernels (flash forward, flash backward) and
 libtpf_limiter.so from the checkout (failing if ptxas reports a spill),
 holds every kernel against its plain PyTorch version on the card and
 times it at the main path's shape and at a long one, then drives the
-port's four paths at Llama-3-8B width (random weights from fixed seeds),
+port's five paths at Llama-3-8B width (random weights from fixed seeds),
 each with the kernel launch counts set to 0 just before it and read just
 after:
 
@@ -23,6 +23,13 @@ after:
   metered client while it serves; then one decode step replayed and run
   eagerly, beside its bytes bound.  The paged path launches none of the
   kernels (its attention is gather and einsum, as the reference's);
+- serving over the wire: a metered ``remoting.RemoteVTPUWorker``
+  hosting that engine at 32 layers, three ``RemoteDevice`` connections
+  (QoS high, medium, low) streaming the engine's 24 requests as
+  GENERATEs, then four 1024-token prompts prefilled by a
+  ``serving.PrefillPool`` in this process and shipped to the worker by
+  ``serving.RemoteKVShipper`` (KV_SHIP), with the pool charged on the
+  meter while the worker serves and no compute charged for its steps;
 - training: AdamW steps, 8 layers, batch 4 x 1024, metered;
 - remote execution: a ``remoting.RemoteVTPUWorker`` that owns the card,
   metered, and a ``RemoteDevice`` over loopback; the 8-layer weights PUT
@@ -33,14 +40,17 @@ after:
 It checks the answers of each: tokens and logits (the engine's f32
 tokens against ``generate``, its graphed step against the eager one, its
 bf16 logits against f32; the remote logits' argmax against the local
-forward's and their bf16 distance from f32), gradients against the
+forward's and their bf16 distance from f32; the f32 tokens of a
+worker-hosted engine against ``generate``, of KV_SHIP against GENERATE
+and of a q8 connection against a raw one), gradients against the
 dense attention path, the remote worker's charges against the local
 FLOP estimate and the resident bytes, and ends with the metered
 train-step bench (``tensorfusion_tpu_torch.bench_train``).  Each phase
 prints one JSON line; any failure raises and exits non-zero.  The line
 before the last two is the kernel table (its ``launches_by_path`` has
-``serve``, ``engine``, ``train`` and ``remote``), the line before the
-last is nvidia-smi's name and power limit, and the last line is
+``serve``, ``engine``, ``train``, ``remote`` and ``remote_serve``), the
+line before the last is nvidia-smi's name and power limit, and the last
+line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -74,6 +84,9 @@ ENGINE_POOL = (1025, 16)                   # blocks (1024 + scratch) x block siz
 ENGINE_BATCH, ENGINE_CHUNK = 8, 256        # max batch, prefill tokens a step
 ENGINE_WAVES = (0, 20, 40)                 # engine steps at which waves arrive
 REMOTE_CALLS = 12                          # timed remote EXECUTEs per shape
+REMOTE_QOS = ("high", "medium", "low")     # the remote serving connections
+REMOTE_WAVE_GAP_S = 1.0                    # seconds between remote request waves
+PREFILL_POOL = (257, 16)                   # prefill tier: blocks x block size
 
 
 def emit(phase: str, **fields) -> None:
@@ -687,7 +700,7 @@ def phase_engine(torch, ops, llama, serving, bench_train, limiter_lib, params, c
                                       rates)},
          hbm_charged_while_serving=held, hbm_charged_after=released,
          kernel_launches=launches, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return launches
+    return launches, {t: toks for t, (toks, _) in outs.items()}
 
 
 def _pad(values, n):
@@ -781,6 +794,325 @@ def phase_engine_check(torch, llama, serving, params, cfg, ref):
          f32_graphs=sorted(map(list, runner32.graphs)), f32_spec=spec,
          graph_vs_eager={"tokens_equal": True, "page_excess_over_tol": page_err,
                          "tolerance": "rtol 2e-4, atol 2e-5"})
+
+
+def _timed_stream(call):
+    """``call(on_token)`` timed: (result, send time, token arrival times)."""
+    stamps = []
+    t_send = time.perf_counter()
+    return call(lambda t: stamps.append(time.perf_counter())), t_send, stamps
+
+
+def _client_threads(devs, requests, wave_of, gap_s, stream_fn):
+    """Send ``requests`` [(tenant, prompt, new)] as streaming calls from
+    one client thread each, request i on connection ``devs[i % len]``,
+    wave ``wave_of(i)`` starting ``gap_s`` seconds after the one before;
+    ``stream_fn(dev, prompt, new, on_token)`` makes the call.  Returns,
+    by tenant, (result, send time, token arrival times), the failures,
+    and the wall seconds from the first send to the last final frame."""
+    results, failures = {}, []
+
+    def run(i, tenant, prompt, new):
+        try:
+            results[tenant] = _timed_stream(
+                lambda cb: stream_fn(devs[i % len(devs)], prompt, new, cb))
+        except Exception as e:  # noqa: BLE001 - raised by the caller
+            failures.append(f"{tenant}: {type(e).__name__}: {e}")
+    threads = [threading.Thread(target=run, args=(i, *req))
+               for i, req in enumerate(requests)]
+    t0 = time.perf_counter()
+    for i, t in enumerate(threads):
+        delay = t0 + wave_of(i) * gap_s - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    end = max((s[-1] for _, _, s in results.values() if s), default=t0)
+    return results, failures, end - t0
+
+
+def _stream_stats(results):
+    """Client-side latency of streamed requests: TTFT (send to first
+    token) and the gaps between consecutive tokens, p50 / p99 in ms."""
+    ttft = [s[0] - t for _, t, s in results.values() if s]
+    gaps = [b - a for _, _, s in results.values() for a, b in zip(s, s[1:])]
+    return {"client_ttft_ms": _quantiles_ms(ttft),
+            "inter_token_ms": _quantiles_ms(gaps)}
+
+
+def _prefill_tier(serving, runner, prompts):
+    """KV payloads of ``prompts`` [(tag, tokens)] from a PrefillPool over
+    ``runner`` (inline, 256-token chunks, prefix sharing), by tag."""
+    pool = serving.PrefillPool([runner], chunk_tokens=ENGINE_CHUNK, inline=True)
+    payloads = {}
+    pool.attach(lambda tag, payload: payloads.__setitem__(tag, payload))
+    for tag, tokens in prompts:
+        pool.submit(tag, tokens)
+    while pool.pump():
+        pass
+    missing = [tag for tag, _ in prompts if payloads.get(tag) is None]
+    if missing:
+        raise RuntimeError(f"the prefill tier could not hold {missing}")
+    return payloads, pool.snapshot()
+
+
+def _ship_prompts(vocab):
+    """KV_SHIP's four 1024-token prompts from a fixed seed: two on the
+    engine traffic's 512-token system prefix, two unshared."""
+    rng = random.Random(5)
+    system = [rng.randrange(vocab) for _ in range(512)]
+    rng = random.Random(12)
+
+    def tokens(n):
+        return [rng.randrange(vocab) for _ in range(n)]
+    return [("k0", system + tokens(512)), ("k1", system + tokens(512)),
+            ("k2", tokens(1024)), ("k3", tokens(1024))]
+
+
+def phase_remote_serve(torch, ops, remoting, serving, bench_train, limiter_lib,
+                       params, cfg, smi, engine_outs):
+    """Serving over the wire at Llama-3-8B width and depth, bf16, on the
+    serving weights: a metered RemoteVTPUWorker hosting a ServingEngine
+    (the engine phase's pool and batch, decode graphs captured up front)
+    owns the card; three RemoteDevice connections over loopback (HELLO
+    QoS high, medium, low) stream the engine phase's 24 requests as
+    GENERATEs from client threads, in three waves REMOTE_WAVE_GAP_S
+    apart.  Then a prefill tier in this process (a PrefillPool over a
+    second runner on the same weights) ships four 1024-token prompts to
+    the worker through RemoteKVShipper: the first alone, the other three
+    together while it decodes (one shares its system prefix).  The kernel
+    launch counts and the meter's compute charges are read over both;
+    the pool must be charged on the meter while serving and released
+    after stop, and left empty."""
+    t_phase = time.perf_counter()
+    num_blocks, block_size = ENGINE_POOL
+    waves, _ = _engine_traffic(cfg.vocab_size)
+    requests = [r for w in waves for r in w]
+    runner = serving.LlamaRunner(params, cfg, num_blocks=num_blocks,
+                                 block_size=block_size, device=DEVICE)
+    runner.warmup(ENGINE_BATCH, 1024, ENGINE_CHUNK)
+    engine = serving.ServingEngine(runner, max_batch=ENGINE_BATCH,
+                                   prefill_chunk_tokens=ENGINE_CHUNK)
+    ship_prompts = _ship_prompts(cfg.vocab_size)
+    prefill = serving.LlamaRunner(params, cfg, num_blocks=PREFILL_POOL[0],
+                                  block_size=PREFILL_POOL[1], device=DEVICE)
+    payloads, tier = _prefill_tier(serving, prefill, ship_prompts)
+    del prefill
+    torch.cuda.empty_cache()
+
+    with bench_train.worker_segment(limiter_lib, WORK / "remote_serve",
+                                    "remote_serve", DEVICE) as meter:
+        worker = remoting.RemoteVTPUWorker(engine=engine, meter_client=meter,
+                                           device=DEVICE)
+        worker.start()
+        try:
+            held = meter.hbm_charged_bytes
+            devs = [remoting.RemoteDevice(worker.url, qos=q, timeout_s=900)
+                    for q in REMOTE_QOS]
+            shipper = serving.RemoteKVShipper(worker.url)
+            try:
+                for d in devs:
+                    d.info()          # dial and HELLO before the counted run
+                wire0 = [(d.wire_stats.get("frame_bytes", 0),
+                          d.rx_stats.get("frame_bytes", 0),
+                          d.rx_stats.get("frames", 0)) for d in devs]
+                launches0, mflops0 = meter.launches, meter.charged_mflops
+                ops.reset_launch_counts()
+                results, failures, wall = _client_threads(
+                    devs, requests, lambda i: i // 8, REMOTE_WAVE_GAP_S,
+                    lambda d, p, n, cb: d.generate(p, n, on_token=cb))
+                if failures:
+                    raise RuntimeError(f"remote GENERATEs failed: {failures}")
+                wire = {"out_bytes": sum(d.wire_stats.get("frame_bytes", 0) - w[0]
+                                         for d, w in zip(devs, wire0)),
+                        "in_bytes": sum(d.rx_stats.get("frame_bytes", 0) - w[1]
+                                        for d, w in zip(devs, wire0)),
+                        "generate_ok_frames": sum(d.rx_stats.get("frames", 0) - w[2]
+                                                  for d, w in zip(devs, wire0))}
+                serving_info = devs[0].info()["serving"]
+                step_ms = engine.step_time.snapshot()
+
+                # KV_SHIP: the first prompt alone (128 new tokens, so it
+                # decodes while the others arrive), then the other three
+                ships, ship_failures = {}, []
+
+                def ship(tag, prompt, new):
+                    try:
+                        ships[tag] = _timed_stream(lambda cb: shipper.ship(
+                            prompt, payloads[tag], new, on_token=cb))
+                    except Exception as e:  # noqa: BLE001 - raised below
+                        ship_failures.append(f"{tag}: {type(e).__name__}: {e}")
+                        return
+                    if not ships[tag][0].get("ship", {}).get("blocks"):
+                        ship_failures.append(f"{tag}: no KV_SHIP_OK receipt")
+                threads = [threading.Thread(target=ship, args=(*ship_prompts[0], 128))]
+                threads[0].start()
+                deadline = time.monotonic() + 300
+                while engine.snapshot()["kv_ship"]["ships"] < 1 and \
+                        threads[0].is_alive() and time.monotonic() < deadline:
+                    time.sleep(0.002)
+                for tag, prompt in ship_prompts[1:]:
+                    threads.append(threading.Thread(target=ship, args=(tag, prompt, 32)))
+                    threads[-1].start()
+                for t in threads:
+                    t.join(timeout=900)
+                if ship_failures or len(ships) != len(ship_prompts):
+                    raise RuntimeError(f"KV_SHIPs failed: {ship_failures}")
+                launches = ops.launch_counts()
+                charged = {"launches": meter.launches - launches0,
+                           "mflops": meter.charged_mflops - mflops0}
+                ship_snap = engine.snapshot()["kv_ship"]
+                # GENERATE of the first shipped prompt, alone on the engine
+                gen_k0 = _timed_stream(lambda cb: devs[0].generate(
+                    ship_prompts[0][1], 128, on_token=cb))
+            finally:
+                shipper.close()
+                for d in devs:
+                    d.close()
+        finally:
+            worker.stop()
+        released = meter.hbm_charged_bytes
+    final = engine.snapshot()
+
+    tokens = sum(len(r["tokens"]) for r, _, _ in results.values())
+    per_qos = {}
+    for i, (tenant, _, _) in enumerate(requests):
+        r, t_send, stamps = results[tenant]
+        q = per_qos.setdefault(REMOTE_QOS[i % len(REMOTE_QOS)], {"tokens": 0, "ttft": []})
+        q["tokens"] += len(r["tokens"])
+        q["ttft"].append(stamps[0] - t_send)
+    per_qos = {q: {"requests": len(v["ttft"]), "tokens": v["tokens"],
+                   "client_ttft_ms": _quantiles_ms(v["ttft"])}
+               for q, v in per_qos.items()}
+    equal_local = sum(results[t][0]["tokens"] == engine_outs.get(t)
+                      for t, _, _ in requests)
+    kv_ship = {}
+    for tag, prompt in ship_prompts:
+        r, t_send, stamps = ships[tag]
+        p = payloads[tag]
+        first_s = stamps[0] - t_send
+        kv_ship[tag] = {"prompt": len(prompt), "new_tokens": len(r["tokens"]),
+                        "blocks": r["ship"]["blocks"], "bytes": p["bytes"],
+                        "ship_to_first_token_ms": first_s * 1e3,
+                        "ship_gb_s": p["bytes"] / first_s / 1e9,
+                        "engine_ttft_ms": r["ttft_ms"]}
+    kv_ship["k0"]["generate_ttft_ms"] = (gen_k0[2][0] - gen_k0[1]) * 1e3
+    kv_ship["k0"]["tokens_equal_generate"] = \
+        ships["k0"][0]["tokens"] == gen_k0[0]["tokens"]
+    snap = {k: serving_info[k] for k in ("tokens", "steps", "decode_steps",
+                                         "prefill_chunks", "batch_occupancy_pct",
+                                         "ttft", "admitted", "retired")}
+    snap["kv"] = {k: serving_info["kv"][k] for k in (
+        "peak_used", "prefix_hits_total", "prefix_hit_tokens_total",
+        "cow_copies_total")}
+    row = {"nvidia_smi": smi, "dim": cfg.dim, "n_layers": cfg.n_layers,
+           "dtype": str(cfg.dtype), "requests": len(requests),
+           "connections": list(REMOTE_QOS), "wave_gap_s": REMOTE_WAVE_GAP_S,
+           "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+           **_stream_stats(results),
+           "engine_ttft_ms": _quantiles_ms([r["ttft_ms"] / 1e3
+                                            for r, _, _ in results.values()]),
+           "per_qos": per_qos, "wire": wire, "serving": snap,
+           "step_ms": step_ms,
+           "tokens_equal_engine_phase": equal_local,
+           "kv_ship": kv_ship, "kv_ship_engine": ship_snap,
+           "prefill_tier": tier,
+           "pool_nbytes": runner.nbytes, "hbm_charged_while_serving": held,
+           "hbm_charged_after_stop": released, "compute_charged": charged,
+           "kernel_launches": launches,
+           "graphs_captured": len(runner.graphs), "capture_s": runner.capture_s,
+           "phase_s": time.perf_counter() - t_phase}
+    emit("remote_serve", **row)
+
+    problems = []
+    for tenant, prompt, new in requests:
+        r = results[tenant][0]
+        if r["finish_reason"] != "length" or len(r["tokens"]) != new or not all(
+                0 <= t < cfg.vocab_size for t in r["tokens"]):
+            problems.append(f"{tenant} ended {r['finish_reason']} with "
+                            f"{len(r['tokens'])} of {new} tokens")
+    for tag, want in zip(kv_ship, (128, 32, 32, 32)):
+        if kv_ship[tag]["new_tokens"] != want or kv_ship[tag]["blocks"] != 64:
+            problems.append(f"KV_SHIP {tag}: {kv_ship[tag]}")
+    if ship_snap["ships"] != len(ship_prompts) or ship_snap["dedup_blocks"] <= 0:
+        problems.append(f"KV_SHIP counters {ship_snap}: want {len(ship_prompts)} "
+                        f"ships and the shared prefix deduplicated")
+    if held != runner.nbytes or released != 0:
+        problems.append(f"pool of {runner.nbytes} B: the meter held {held} while "
+                        f"serving and {released} after stop")
+    if charged != {"launches": 0, "mflops": 0}:
+        problems.append(f"compute charged for engine steps: {charged}")
+    if any(launches.values()):
+        problems.append(f"kernels launched on the paged path: {launches}")
+    if final["kv"]["used"] != 0:
+        problems.append(f"the pool kept blocks: {final['kv']}")
+    if problems:
+        raise RuntimeError("remote_serve phase: " + "; ".join(problems))
+    return launches
+
+
+def phase_remote_serve_check(torch, llama, remoting, serving, cfg):
+    """f32 at full width, 2 layers, through a worker-hosted engine: remote
+    GENERATE tokens equal ``generate``'s for 5 ragged requests sent from 3
+    concurrent connections; a KV_SHIP of a prefill tier's pages gives the
+    GENERATE tokens of the same prompt; a q8-negotiated connection gives
+    the raw connection's tokens."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=2,
+                                attn_impl="full")
+    p32 = llama.init_params(cfg32, torch.Generator(device=DEVICE).manual_seed(8),
+                            device=DEVICE)
+    rng = random.Random(13)
+    requests = [(f"r{i}", [rng.randrange(cfg.vocab_size) for _ in range(n)], new)
+                for i, (n, new) in enumerate(((100, 12), (333, 8), (64, 20),
+                                              (700, 10), (257, 16)))]
+    engine = serving.ServingEngine(
+        serving.LlamaRunner(p32, cfg32, num_blocks=257, block_size=16, device=DEVICE),
+        max_batch=4, prefill_chunk_tokens=128)
+    worker = remoting.RemoteVTPUWorker(engine=engine, device=DEVICE)
+    worker.start()
+    try:
+        devs = [remoting.RemoteDevice(worker.url, timeout_s=600) for _ in range(3)]
+        q8 = remoting.RemoteDevice(worker.url, timeout_s=600, quantize=True)
+        shipper = serving.RemoteKVShipper(worker.url)
+        try:
+            results, failures, _ = _client_threads(
+                devs, requests, lambda i: i, 0.05,
+                lambda d, p, n, cb: d.generate(p, n, on_token=cb))
+            if failures:
+                raise RuntimeError(f"f32 remote GENERATEs failed: {failures}")
+            _, prompt, new = requests[3]
+            payloads, _ = _prefill_tier(serving, serving.LlamaRunner(
+                p32, cfg32, num_blocks=257, block_size=16, device=DEVICE),
+                [("ship", prompt)])
+            shipped = shipper.ship(prompt, payloads["ship"], new)["tokens"]
+            quantized = q8.generate(prompt, new)["tokens"]
+            q8_on = q8.info()["quant_on"]
+        finally:
+            shipper.close()
+            q8.close()
+            for d in devs:
+                d.close()
+    finally:
+        worker.stop()
+    problems = []
+    for tenant, p, n in requests:
+        want = llama.generate(p32, torch.tensor([p], device=DEVICE), n, cfg32,
+                              device=DEVICE)[0].tolist()
+        if results[tenant][0]["tokens"] != want:
+            problems.append(f"remote tokens of {tenant} differ from generate")
+    raw = results[requests[3][0]][0]["tokens"]
+    if shipped != raw:
+        problems.append(f"KV_SHIP tokens {shipped} differ from GENERATE's {raw}")
+    if quantized != raw or not q8_on:
+        problems.append(f"q8 tokens {quantized} (q8 on: {q8_on}) differ from raw {raw}")
+    if engine.snapshot()["kv"]["used"] != 0:
+        problems.append("the f32 pool kept blocks")
+    if problems:
+        raise RuntimeError("remote_serve_check: " + "; ".join(problems))
+    emit("remote_serve_check", f32_requests=[[len(p), n] for _, p, n in requests],
+         connections=len(devs), f32_remote_tokens_equal_generate=True,
+         kv_ship_tokens_equal_generate=True, q8_tokens_equal_raw=True)
 
 
 def _train_batch(torch, vocab, shape, seed):
@@ -1225,10 +1557,17 @@ def main() -> int:
     params, serve_launches = phase_serve(torch, ops, llama, bench_train,
                                          limiter_lib, cfg)
     ref = phase_serve_check(torch, llama, params, cfg)
-    engine_launches = phase_engine(torch, ops, llama, serving, bench_train,
-                                   limiter_lib, params, cfg, rates, smi)
+    engine_launches, engine_outs = phase_engine(torch, ops, llama, serving,
+                                                bench_train, limiter_lib, params,
+                                                cfg, rates, smi)
     phase_engine_check(torch, llama, serving, params, cfg, ref)
+    torch.cuda.empty_cache()
+    remote_serve_launches = phase_remote_serve(torch, ops, remoting, serving,
+                                               bench_train, limiter_lib, params,
+                                               cfg, smi, engine_outs)
     del params, ref
+    torch.cuda.empty_cache()
+    phase_remote_serve_check(torch, llama, remoting, serving, cfg)
     torch.cuda.empty_cache()
 
     cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
@@ -1245,11 +1584,13 @@ def main() -> int:
     kernels = [{"name": k.name, "route": k.route, "source": k.source,
                 "replaces": k.replaces,
                 "launches": serve_launches[k.name] + train_launches[k.name]
-                + engine_launches[k.name] + remote_launches[k.name],
+                + engine_launches[k.name] + remote_launches[k.name]
+                + remote_serve_launches[k.name],
                 "launches_by_path": {"serve": serve_launches[k.name],
                                      "train": train_launches[k.name],
                                      "engine": engine_launches[k.name],
-                                     "remote": remote_launches[k.name]},
+                                     "remote": remote_launches[k.name],
+                                     "remote_serve": remote_serve_launches[k.name]},
                 **{key: rows[k.name][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "plain", "library", "pair_ms")

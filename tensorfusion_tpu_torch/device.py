@@ -4,10 +4,17 @@ Every entry point takes a ``device`` that defaults to ``"cuda"``.  Asking
 for CUDA on a machine without a usable card raises; nothing falls back to
 the CPU on its own.  The CPU runs only where the caller asks for it (the
 tests do), and there the kernels' plain PyTorch versions run.
+
+:data:`DEVICE_GATE` is the process's one rule for who may touch the card
+while a CUDA graph is being captured: eager device work (the serving
+runners' prefills and page moves, the remote worker's copies, module
+calls and fetches) enters it shared, a capture enters it alone.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Union
 
 import torch
@@ -24,3 +31,46 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             f"device {str(device)!r} asked for, but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the CPU")
     return dev
+
+
+class _CaptureGate:
+    """Eager device work enters shared; a graph capture enters alone,
+    once the shared holders have left, and holds new ones off until it
+    is done."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._shared = 0
+        self._capturing = False     # a capture holds or waits for the gate
+
+    @contextlib.contextmanager
+    def shared(self):
+        with self._cv:
+            while self._capturing:
+                self._cv.wait()
+            self._shared += 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._shared -= 1
+                self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        with self._cv:
+            while self._capturing:
+                self._cv.wait()
+            self._capturing = True
+            while self._shared:
+                self._cv.wait()
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._capturing = False
+                self._cv.notify_all()
+
+
+#: one gate for all device work of the process (they share the card)
+DEVICE_GATE = _CaptureGate()

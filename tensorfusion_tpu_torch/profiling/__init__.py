@@ -1,9 +1,9 @@
 """tpfprof for the port: per-tenant device-time attribution
-(``profiler``) and the always-on flight recorder (``recorder``).  The
-artifact exporter comes with the serving-over-the-wire part of remote
-execution."""
+(``profiler``), the always-on flight recorder (``recorder``) and the
+``tpf_prof_*`` influx lines of a snapshot (``export``)."""
 
+from .export import profile_lines
 from .profiler import Profiler
 from .recorder import FlightRecorder
 
-__all__ = ["FlightRecorder", "Profiler"]
+__all__ = ["FlightRecorder", "Profiler", "profile_lines"]

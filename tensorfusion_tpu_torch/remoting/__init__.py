@@ -1,8 +1,9 @@
-"""Remote execution of the port, part 1: the TPFR wire protocol
-(``protocol``), the QoS dispatcher (``dispatch``), the program format
-(``program``), a single-device worker (``worker``) and its client
-(``client``).  Serving over the wire, state and peers come with later
-parts."""
+"""Remote execution of the port: the TPFR wire protocol (``protocol``),
+the QoS dispatcher (``dispatch``), the program format (``program``), a
+single-device worker (``worker``) that also serves GENERATE and KV_SHIP
+through a hosted serving engine, its client (``client``), and pooled
+worker-to-worker links (``fabric``).  State, migration and the peer
+fabric's collectives come with a later part."""
 
 from .client import (RemoteBuffer, RemoteBusyError, RemoteDeadlineError,
                      RemoteDevice, RemoteExecutionError)

@@ -25,9 +25,18 @@ attempt on a dropped connection; optional client-side tracing
 (``tracer=``) whose wire span's context rides the EXECUTE and adopts
 the worker's span tree.
 
+Serving over the wire: :meth:`RemoteDevice.generate` streams a GENERATE
+through the worker's continuous-batching engine (``_submit(...,
+stream=queue)``: the reader routes every frame of that request to the
+queue until the final frame or an ERROR, and hands a lost connection to
+every open stream), and :meth:`RemoteDevice.ship_kv` ships a prefilled
+prompt's KV pages (KV_SHIP, protocol v6): pages of ``SHARD_PUT_MIN_BYTES``
+or more go ahead as quiet ephemeral PUTs, smaller ones inline.
+
 Left out until the multi-device slice: ``ShardedRemoteBuffer``, the
-sharded layouts and the ``_UploadStream`` of sharded shard PUTs; until
-the control-plane part: ``from_connection``.
+sharded layouts and the reference's background upload stream (its
+sharded uploads and the peer fabric's staged PUTs are what it
+overlaps); until the control-plane part: ``from_connection``.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ import random
 import socket
 import threading
 from concurrent.futures import Future
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +62,11 @@ from . import program, protocol
 from .protocol import recv_message, send_message
 
 log = logging.getLogger("tpf_torch.remoting.client")
+
+#: buffers at or above this size are uploaded as separate pipelined PUT
+#: frames (their transfer overlaps the worker's copy of earlier ones);
+#: smaller ones ride inline in the request frame
+SHARD_PUT_MIN_BYTES = 256 << 10
 
 #: how many BUSY rejections the synchronous wrapper absorbs (with
 #: jittered backoff) before giving up — a saturated-but-moving worker
@@ -120,6 +134,12 @@ class RemoteBuffer:
         self.device._rpc("FREE", {"buf_ids": [self.buf_id]}, [])
 
 
+def _nbytes(arr) -> int:
+    if isinstance(arr, torch.Tensor):
+        return arr.numel() * arr.element_size()
+    return int(np.asarray(arr).nbytes)
+
+
 def _wire_dtype(leaf) -> str:
     if isinstance(leaf, RemoteBuffer):
         return leaf.dtype
@@ -185,8 +205,15 @@ class RemoteDevice:
         self._send_lock = threading.Lock()
         self._state_lock = threading.Lock()
         self._pending: Dict[int, Future] = {}
+        #: seq -> (Queue, frames still owed) of a streaming request
+        #: (GENERATE, KV_SHIP): every frame echoing the seq lands on the
+        #: queue; the entry goes once the final frame (``done``) and a
+        #: KV_SHIP's receipt have both come (the receipt may come last),
+        #: at an ERROR, or with the connection
+        # guarded by: _state_lock
+        self._streams: Dict[int, Tuple[Any, set]] = {}
         self._seq = 0
-        self._mint = itertools.count(1)   # client-minted result ids
+        self._mint = itertools.count(1)   # client-minted buffer ids
         #: frame versions this client build decodes
         self._accept = tuple(v for v in protocol.SUPPORTED_VERSIONS
                              if v <= self.protocol_version)
@@ -237,9 +264,23 @@ class RemoteDevice:
                 meta["_rx_wire"] = rx
                 for k, v in rx.items():
                     self.rx_stats[k] = self.rx_stats.get(k, 0) + v
+                seq = meta.get("seq")
                 with self._state_lock:
-                    fut = self._pending.pop(meta.get("seq"), None)
-                if fut is not None:
+                    entry = self._streams.get(seq)
+                    stream = None if entry is None else entry[0]
+                    if entry is not None:
+                        # streaming request: an ERROR retires it, else
+                        # the last of the frames it owes
+                        owed = entry[1]
+                        owed.discard("done" if meta.get("done") else kind)
+                        if kind == "ERROR" or not owed:
+                            self._streams.pop(seq, None)
+                        fut = None
+                    else:
+                        fut = self._pending.pop(seq, None)
+                if stream is not None:
+                    stream.put((kind, meta, bufs))
+                elif fut is not None:
                     fut.set_result((kind, meta, bufs))
         except Exception as e:  # noqa: BLE001 - fail this socket's calls
             with self._state_lock:
@@ -248,9 +289,18 @@ class RemoteDevice:
                     # connection's pending map is not ours to fail
                     return
                 pending, self._pending = self._pending, {}
-            for fut in pending.values():
-                if not fut.done():
-                    fut.set_exception(ConnectionError(str(e)))
+                streams, self._streams = self._streams, {}
+            self._fail(pending, streams, str(e))
+
+    @staticmethod
+    def _fail(pending: Dict[int, Future], streams: Dict[int, Any],
+              error: str) -> None:
+        """Hand a lost connection to its in-flight requests and streams."""
+        for fut in pending.values():
+            if not fut.done():
+                fut.set_exception(ConnectionError(error))
+        for q, _ in streams.values():
+            q.put(("ERROR", {"error": error, "_connection_lost": True}, []))
 
     def close(self) -> None:
         with self._send_lock:
@@ -265,9 +315,8 @@ class RemoteDevice:
             # in-flight requests itself — promptly, not after timeout_s
             with self._state_lock:
                 pending, self._pending = self._pending, {}
-            for fut in pending.values():
-                if not fut.done():
-                    fut.set_exception(ConnectionError("device closed"))
+                streams, self._streams = self._streams, {}
+            self._fail(pending, streams, "device closed")
 
     def _quant_on(self) -> bool:
         """q8 is live for this connection: opted in AND negotiated v6."""
@@ -285,12 +334,15 @@ class RemoteDevice:
     def _submit(self, kind: str, meta: Dict[str, Any], buffers,
                 compress: bool = True,
                 want_reply: bool = True,
+                stream=None,
                 stats: Optional[Dict[str, int]] = None
                 ) -> Optional[Future]:
         """Send one request without waiting; the returned Future resolves
         to (kind, meta, buffers) when its response arrives.  With
         ``want_reply=False`` the request carries no seq and returns None
         (fire-and-forget: quiet requests whose failures surface later).
+        With ``stream=`` (a Queue) the request is streaming: every reply
+        frame of its seq is put on the queue, and it returns None.
         ``stats`` additionally receives this send's wire accounting."""
         st: Dict[str, int] = {}
         with self._send_lock:
@@ -299,7 +351,15 @@ class RemoteDevice:
                 # sender must wait for the socket, not dial a second one
                 self._connect_locked()
             fut: Optional[Future] = None
-            if want_reply:
+            if stream is not None:
+                self._seq += 1
+                seq = self._seq
+                wire_meta = dict(meta, seq=seq)
+                owed = {"done", "KV_SHIP_OK"} if kind == "KV_SHIP" \
+                    else {"done"}
+                with self._state_lock:
+                    self._streams[seq] = (stream, owed)
+            elif want_reply:
                 self._seq += 1
                 seq = self._seq
                 wire_meta = dict(meta, seq=seq)
@@ -318,17 +378,21 @@ class RemoteDevice:
                 # one reconnect attempt (worker restarts, idle timeouts);
                 # every other in-flight request died with the old socket
                 with self._state_lock:
-                    if want_reply:
+                    if stream is not None:
+                        self._streams.pop(seq, None)
+                    elif want_reply:
                         self._pending.pop(seq, None)
                     dead, self._pending = self._pending, {}
-                for f in dead.values():
-                    if not f.done():
-                        f.set_exception(ConnectionError("connection lost"))
+                    dead_streams, self._streams = self._streams, {}
+                self._fail(dead, dead_streams, "connection lost")
                 if self._sock is not None:
                     self._sock.close()
                     self._sock = None
                 self._connect_locked()
-                if want_reply:
+                if stream is not None:
+                    with self._state_lock:
+                        self._streams[seq] = (stream, owed)
+                elif want_reply:
                     with self._state_lock:
                         self._pending[seq] = fut
                 send_message(self._sock, kind, wire_meta, buffers,
@@ -384,6 +448,163 @@ class RemoteDevice:
 
     def _ensure_v3(self, what: str) -> bool:
         return self._ensure_version(3, what)
+
+    def _consume_stream(self, q, gspan, busy: int,
+                        on_token: Optional[Callable[[int], None]],
+                        receipt_owed: bool) -> Dict[str, Any]:
+        """Read one GENERATE / KV_SHIP stream to its final frame (and a
+        KV_SHIP's receipt, which may come after it): tokens to
+        ``on_token`` as they land, ERROR frames raised as the typed
+        exceptions (a lost connection as ``ConnectionError``)."""
+        tokens: List[int] = []
+        receipt: Dict[str, Any] = {}
+        out: Optional[Dict[str, Any]] = None
+        while out is None or (receipt_owed and not receipt):
+            kind, rmeta, _ = q.get(timeout=self.timeout_s)
+            if kind == "ERROR":
+                if rmeta.get("_connection_lost"):
+                    raise ConnectionError(rmeta.get("error", "connection lost"))
+                if self.tracer is not None:
+                    self.tracer.adopt(rmeta.get("trace_spans") or ())
+                _raise_reply_error(rmeta)
+            if kind == "KV_SHIP_OK":
+                receipt = {"blocks": rmeta.get("blocks"),
+                           "n_tokens": rmeta.get("n_tokens")}
+                continue
+            for t in rmeta.get("tokens") or ():
+                tokens.append(int(t))
+                if on_token is not None:
+                    on_token(int(t))
+            if rmeta.get("done"):
+                if self.tracer is not None:
+                    self.tracer.adopt(rmeta.get("trace_spans") or ())
+                if gspan is not None:
+                    gspan.finish(ttft_ms=rmeta.get("ttft_ms") or 0,
+                                 busy_retries=busy)
+                out = {"tokens": tokens,
+                       "n_tokens": rmeta.get("n_tokens", len(tokens)),
+                       "ttft_ms": rmeta.get("ttft_ms"),
+                       "finish_reason": rmeta.get("finish_reason", ""),
+                       "busy_retries": busy}
+        if receipt_owed:
+            out["ship"] = receipt
+        return out
+
+    def _stream_request(self, base_meta: Dict[str, Any], max_tokens: int,
+                        send,
+                        on_token: Optional[Callable[[int], None]],
+                        receipt_owed: bool = False) -> Dict[str, Any]:
+        """Send a streaming request with ``send(meta, queue)`` and consume
+        its stream (``receipt_owed``: a KV_SHIP's), retrying BUSY with
+        jittered backoff (bounded) and tracing it as ``client.generate``
+        when a tracer is set."""
+        import queue as _queue
+
+        gspan = None
+        if self.tracer is not None:
+            gspan = self.tracer.start_span(
+                "client.generate", attrs={"tokens": int(max_tokens)})
+            if gspan.sampled:
+                base_meta = dict(base_meta, trace=gspan.ctx())
+        busy = 0
+        try:
+            while True:
+                q: "_queue.Queue" = _queue.Queue()
+                send(dict(base_meta), q)
+                try:
+                    return self._consume_stream(q, gspan, busy, on_token,
+                                                receipt_owed)
+                except RemoteBusyError as e:
+                    busy += 1
+                    if busy > MAX_BUSY_RETRIES:
+                        raise
+                    default_clock().sleep(e.backoff_s(busy))
+        except BaseException as e:
+            if gspan is not None and gspan.end_s is None:
+                gspan.finish(error=f"{type(e).__name__}: {e}"[:200])
+            raise
+
+    def generate(self, prompt, max_tokens: int,
+                 eos_id: Optional[int] = None,
+                 deadline_ms: Optional[float] = None,
+                 stream: bool = True,
+                 on_token: Optional[Callable[[int], None]] = None
+                 ) -> Dict[str, Any]:
+        """Generate through the worker's continuous-batching engine: one
+        GENERATE, its GENERATE_OK frames consumed until the final one.
+        ``on_token`` is called per token as frames arrive; the result
+        holds every ``tokens`` plus the engine's ``ttft_ms``,
+        ``finish_reason`` and ``n_tokens``.  A saturated engine's BUSY
+        is retried with jittered backoff (bounded); a missed admission
+        deadline raises :class:`RemoteDeadlineError`.  Needs a v5
+        worker with an engine."""
+        self._ensure_version(5, "GENERATE (serving engine)")
+        meta: Dict[str, Any] = {"prompt": [int(t) for t in prompt],
+                                "max_tokens": int(max_tokens),
+                                "stream": bool(stream)}
+        if eos_id is not None:
+            meta["eos_id"] = int(eos_id)
+        if deadline_ms is not None:
+            meta["deadline_ms"] = float(deadline_ms)
+        return self._stream_request(
+            meta, max_tokens,
+            lambda m, q: self._submit("GENERATE", m, [], stream=q), on_token)
+
+    def ship_kv(self, prompt, max_tokens: int, keys, k, v,
+                first_token: Optional[int], n_tokens: int,
+                eos_id: Optional[int] = None,
+                deadline_ms: Optional[float] = None,
+                stream: bool = True,
+                on_token: Optional[Callable[[int], None]] = None
+                ) -> Dict[str, Any]:
+        """Ship a prompt's prefilled KV pages to the worker's engine
+        (KV_SHIP, protocol v6) and consume the generation that follows.
+        ``keys``: per-block content chain keys
+        (``serving.kvpool.prompt_block_keys``); ``k`` / ``v``: ``[L,
+        n_blocks, n_kv, bs, D]`` tensors or arrays (None ships metadata
+        alone, for storage-free runners).  Pages of
+        ``SHARD_PUT_MIN_BYTES`` or more go ahead as quiet ephemeral PUTs
+        on this connection (q8 per block where it negotiated q8), the
+        KV_SHIP frame after them.  Returns what :meth:`generate`
+        returns, plus the receipt as ``ship``; the stream is read until
+        both the final frame and the receipt have come.  A pre-v6
+        connection raises before anything is sent."""
+        self._ensure_version(protocol.KV_SHIP_MIN_VERSION,
+                             "KV_SHIP (disaggregated prefill)")
+        meta: Dict[str, Any] = {"prompt": [int(t) for t in prompt],
+                                "max_tokens": int(max_tokens),
+                                "keys": [int(x) for x in keys],
+                                "n_tokens": int(n_tokens),
+                                "stream": bool(stream)}
+        if first_token is not None:
+            meta["first_token"] = int(first_token)
+        if eos_id is not None:
+            meta["eos_id"] = int(eos_id)
+        if deadline_ms is not None:
+            meta["deadline_ms"] = float(deadline_ms)
+        pages = None if k is None else tuple(
+            t.contiguous() if isinstance(t, torch.Tensor)
+            else np.ascontiguousarray(np.asarray(t)) for t in (k, v))
+
+        def send(m, q):
+            buffers = []
+            if pages is not None and _nbytes(pages[0]) >= SHARD_PUT_MIN_BYTES:
+                # big pages: quiet ephemeral PUTs ahead of the frame; a
+                # BUSY retry ships them again (the worker consumed them
+                # with the rejection)
+                ctr = next(self._mint)
+                ids = [f"c-kv{ctr}-k", f"c-kv{ctr}-v"]
+                for sid, arr in zip(ids, pages):
+                    self._submit("PUT", {"buf_id": sid, "ephemeral": True,
+                                         "quiet": True}, [arr],
+                                 want_reply=False)
+                m["kv_bufs"] = ids
+            elif pages is not None:
+                buffers = list(pages)
+            self._submit("KV_SHIP", m, buffers, stream=q)
+
+        return self._stream_request(meta, max_tokens, send, on_token,
+                                    receipt_owed=True)
 
     # ------------------------------------------------------------------
 

@@ -18,10 +18,15 @@ safe load of them fails) and resolves node targets by name from the
 stored uncompressed and be one the format names; example inputs must be
 empty; every weight and constant must be a raw tensor payload, never a
 pickle; and every node (and every operator passed as an argument) must
-call an ``aten`` / ``prims`` / ``tpf_torch`` operator that does no file
-I/O, no unchecked indexing and no uninitialized allocation, one of the
-control-flow higher-order operators export emits, or one of a few
-``operator`` / ``math`` functions.  Anything else raises
+call an operator of a closed set written in this file: an ``aten`` /
+``prims`` overload tagged ``torch.Tag.core`` or on the short list of
+non-core overloads that ``torch.export`` emits for the port's own
+programs (:data:`_NONCORE_OPS`), minus every op with an effect outside
+the program (file I/O, printing, process-wide cuFFT state, stream
+bookkeeping, the process's random generator, unchecked indexing,
+uninitialized allocation, storage swaps); a ``tpf_torch`` operator; one
+of the control-flow higher-order operators export emits; or one of a
+few ``operator`` / ``math`` functions.  Anything else raises
 ``ValueError`` before a byte of it is deserialized.  The program is then
 moved to the worker's device (``move_to_device_pass``: an export on the
 CPU bakes ``device="cpu"`` into the tensors the graph makes, such as
@@ -49,6 +54,18 @@ _MATH_TARGETS = frozenset(("ceil", "floor", "trunc", "sqrt"))
 #: operator namespaces a graph may call: ATen, its primitives and the
 #: port's kernels (``tpf_torch``); never another library's in the process
 _NAMESPACES = frozenset(("aten", "prims", "tpf_torch"))
+#: the ``aten`` overloads outside ``torch.Tag.core`` that a program may
+#: call: those ``torch.export`` emits for the functions the port ships
+#: (the Llama forward with ``attn_impl`` "flash" and "full", its decoder
+#: layer step, chip_smoke.py's last-position forward, in f32 and bf16,
+#: and the tests' programs), found by exporting them; every other
+#: non-core overload is refused
+_NONCORE_OPS = frozenset((
+    "_assert_tensor_metadata.default", "arange.default", "einsum.default",
+    "linear.default", "masked_fill.Scalar", "matmul.default", "max.default",
+    "ones.default", "repeat_interleave.self_int", "reshape.default",
+    "softmax.int", "square.default", "stack.default", "sum.default",
+    "to.dtype", "transpose.int", "tril.default"))
 #: the higher-order operators export emits for control flow and for
 #: grad / autocast regions (their subgraphs are checked like the graph)
 _HIGHER_ORDER = frozenset(("cond", "while_loop", "map_impl", "scan",
@@ -103,17 +120,22 @@ def export_program(fn: Callable, specs: Sequence[Tuple[tuple, torch.dtype]],
     return buf.getvalue(), out_tree, out_sigs
 
 
-def _refused_op(name: str, schema) -> bool:
-    """Operators of the allowed namespaces that a tenant's program may
-    not call: file I/O (``from_file``), indexing and views without bounds
+def _refused_op(name: str, op) -> bool:
+    """Operators that a tenant's program may not call, whatever their
+    tags: file I/O (``from_file``), printing to the worker's output
+    (``_print``), process-wide state every tenant shares (``_cufft_*``
+    plan caches, ``record_stream``, and every op that draws from the
+    process's random generator), indexing and views without bounds
     checks (``*unsafe*``, ``_nested_view_from_buffer*``), storage swaps
     (a ``Storage`` argument), and memory handed back uninitialized
     (``empty*``, ``resize*``: it may hold another tenant's freed
     buffers)."""
-    if name == "from_file" or "unsafe" in name or "empty" in name or \
-            name.startswith(("_nested_view_from_buffer", "resize")):
+    if name in ("from_file", "_print", "record_stream") or \
+            "unsafe" in name or "empty" in name or name.startswith(
+                ("_nested_view_from_buffer", "resize", "_cufft")) or \
+            torch.Tag.nondeterministic_seeded in op.tags:
         return True
-    for arg in schema.arguments:
+    for arg in op._schema.arguments:
         kind = str(arg.type)
         if "Storage" in kind or ("str" in kind and any(
                 w in arg.name.lower() for w in ("file", "path"))):
@@ -139,8 +161,11 @@ def _allowed_target(target: str) -> bool:
         op = getattr(getattr(getattr(torch.ops, parts[2]), parts[3]), parts[4])
     except (AttributeError, RuntimeError):
         return False
-    return isinstance(op, torch._ops.OpOverload) and \
-        not _refused_op(parts[3], op._schema)
+    if not isinstance(op, torch._ops.OpOverload) or _refused_op(parts[3], op):
+        return False
+    # the closed set: core ATen, the listed overloads, the port's kernels
+    return parts[2] == "tpf_torch" or torch.Tag.core in op.tags or (
+        parts[2] == "aten" and f"{parts[3]}.{parts[4]}" in _NONCORE_OPS)
 
 
 def _node_targets(tree, out: set) -> set:

@@ -23,8 +23,8 @@ client-minted id and ephemeral fields; v4 deadlines and structured
 server ``trace_spans``; v6 q8; v7-v9 the federated, migration and
 peer-fabric kinds.  The registries below list every kind of the
 reference; the port's worker serves HELLO, INFO, COMPILE, PUT, FREE,
-FETCH and EXECUTE and answers the rest with ``unknown kind``.  No pickle
-rides the wire.
+FETCH, EXECUTE, GENERATE and KV_SHIP (v6) and answers the rest with
+``unknown kind``.  No pickle rides the wire.
 
 bf16 needs no ``ml_dtypes``: the port frames bf16 torch tensors as their
 2-byte payload under ``dtype: "bfloat16"``, exactly as the reference
@@ -56,6 +56,9 @@ SUPPORTED_VERSIONS = (2, 3, 4, 5, 6, 7, 8, 9)
 HELLO_VERSION = 2
 #: lowest wire version whose frames may carry ``enc="q8"`` buffers
 Q8_MIN_VERSION = 6
+#: lowest wire version that may carry KV_SHIP (the client refuses to
+#: send it below, the worker to honor it below)
+KV_SHIP_MIN_VERSION = 6
 
 # -- opcode / reply / error-code registry ---------------------------------
 
@@ -397,6 +400,12 @@ def encode_message_parts(kind: str, meta: Dict[str, Any],
     header = json.dumps({"kind": kind, "meta": meta,
                          "buffers": descs}).encode()
     head = MAGIC + struct.pack("<II", version, len(header)) + header
+    if stats is not None:
+        # whole frames, header included (the buffer counters above count
+        # payloads only)
+        stats["frames"] = stats.get("frames", 0) + 1
+        stats["frame_bytes"] = stats.get("frame_bytes", 0) + len(head) + \
+            sum(d["nbytes"] for d in descs)
     return [head] + views
 
 
@@ -511,6 +520,11 @@ def recv_message(sock: socket.socket,
     if hlen > MAX_HEADER_BYTES:
         raise ValueError(f"header of {hlen} bytes exceeds cap")
     header = json.loads(_read_exact(sock, hlen))
+    if stats is not None:
+        # whole frames, header included (the buffer counters below count
+        # payloads only)
+        stats["frames"] = stats.get("frames", 0) + 1
+        stats["frame_bytes"] = stats.get("frame_bytes", 0) + len(head) + hlen
     buffers = []
     for desc in header["buffers"]:
         nbytes, raw_nbytes = desc["nbytes"], desc.get("raw_nbytes")
@@ -522,6 +536,7 @@ def recv_message(sock: socket.socket,
             stats["raw_bytes"] = stats.get("raw_bytes", 0) + \
                 int(raw_nbytes or nbytes)
             stats["wire_bytes"] = stats.get("wire_bytes", 0) + nbytes
+            stats["frame_bytes"] += nbytes
             key = f"buffers_{enc}"
             stats[key] = stats.get(key, 0) + 1
         if enc == "q8":

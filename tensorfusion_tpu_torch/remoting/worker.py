@@ -7,9 +7,18 @@ an executable cache keyed by content hash so repeated clients share one
 loaded program.  A program is a ``torch.export`` archive
 (``remoting/program.py``), checked before it is loaded and moved to the
 worker's device; its flash attention runs the port's Hopper kernel there
-(the custom op picks the kernel from its tensors' device).  Every other
-kind, including those of later parts of the port (GENERATE, KV_SHIP,
-SNAPSHOT, RESTORE, migration, the collectives and the peer fabric, and
+(the custom op picks the kernel from its tensors' device).
+
+With ``engine=`` (a :class:`~..serving.engine.ServingEngine` whose runner
+lives on the worker's device) it also serves GENERATE (tokens stream
+back as GENERATE_OK frames while the continuous-batching engine makes
+them) and KV_SHIP (protocol v6: a prefill tier's KV pages, inline or
+as ephemeral PUTs, ingested into the engine's pool with prefix dedup,
+then streamed like GENERATE).  The engine's pool is charged against the
+resident budget and the meter at :meth:`start` and released at
+:meth:`stop`; compute is charged per EXECUTE only, never per engine
+step.  Every other kind, including those of later parts of the port
+(SNAPSHOT, RESTORE, migration, the collectives and the peer fabric, and
 COMPILE_MLIR), gets the reference's ``unknown kind`` ERROR.
 
 As in the reference:
@@ -28,7 +37,13 @@ As in the reference:
   serialized by a per-connection write lock.
 - **resident memory**: PUT and ``keep_results`` buffers are admitted
   against ``max_resident_bytes`` and charged on ``meter_client.charge_hbm``
-  (``_admit_resident`` / ``_release_resident``); FREE releases them.
+  (``_admit_resident`` / ``_release_resident``); FREE releases them, and
+  an ``ephemeral`` PUT is released when its first consumer takes it.
+- **one gate for device work**: the PUT copies on the copy pool, the
+  module calls and flushes on the dispatcher thread and FETCH enter the
+  process-wide :data:`~..device.DEVICE_GATE` shared, as the runners'
+  eager calls do, so a hosted engine's lazy graph capture (which enters
+  it alone) never overlaps them.
 - **metering**: one ``meter_client.charge_launch(mflops)`` per EXECUTE
   (the client's ``mflops_hint`` at COMPILE), ``mflops * k`` for a fused
   batch of k.
@@ -64,7 +79,7 @@ from typing import Dict, List, Optional
 import torch
 
 from .. import constants
-from ..device import DeviceLike, resolve_device
+from ..device import DEVICE_GATE, DeviceLike, resolve_device
 from ..profiling.profiler import Profiler
 from ..profiling.recorder import FlightRecorder
 from ..tracing.core import Tracer
@@ -86,6 +101,12 @@ def _leaves(out) -> list:
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    if a.type != b.type:
+        return False
+    return a.type != "cuda" or (a.index or 0) == (b.index or 0)
+
+
 class RemoteVTPUWorker:
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  meter_client=None, token: Optional[str] = None,
@@ -99,11 +120,17 @@ class RemoteVTPUWorker:
                  max_queue_global: Optional[int] = None,
                  max_microbatch: Optional[int] = None,
                  tracer: Optional[Tracer] = None,
+                 engine=None,
                  profiler: Optional[Profiler] = None,
                  recorder: Optional[FlightRecorder] = None,
                  device: DeviceLike = "cuda"):
         #: the one device this worker owns; "cuda" without a card raises
         self.device = resolve_device(device)
+        runner_dev = getattr(getattr(engine, "runner", None), "device", None)
+        if runner_dev is not None and \
+                not _same_device(torch.device(runner_dev), self.device):
+            raise ValueError(f"the engine's runner is on {runner_dev}, the "
+                             f"worker owns {self.device}")
         self.meter_client = meter_client    # optional VTPUClient
         #: highest wire version this worker speaks; pinning it to 2 makes
         #: the worker byte-faithful to a v2 build (mixed-version tests)
@@ -163,6 +190,10 @@ class RemoteVTPUWorker:
         #: buf_id -> device tensor (or the Future of an async PUT)
         # guarded by: _lock
         self._buffers: Dict[str, object] = {}
+        #: buf_ids freed when first consumed (KV_SHIP's page uploads: the
+        #: client sends them ahead of the frame and never names them again)
+        # guarded by: _lock
+        self._ephemeral: set = set()
         # guarded by: _lock
         self._buf_seq = 0
         # guarded by: _lock
@@ -214,6 +245,18 @@ class RemoteVTPUWorker:
                                            profiler=self.profiler,
                                            recorder=self.recorder,
                                            **kwargs)
+        #: optional continuous-batching engine: GENERATE and KV_SHIP
+        #: stream through it; its stepper starts and stops with the
+        #: worker.  It shares the worker's tracer, attribution ledger and
+        #: flight recorder unless it brought its own.
+        self.engine = engine
+        if engine is not None:
+            for hook in ("tracer", "profiler", "recorder"):
+                if getattr(engine, hook, None) is None:
+                    setattr(engine, hook, getattr(self, hook))
+        #: the paged pool's footprint, charged at start() like any
+        #: resident buffer and released at stop()
+        self._engine_pool_bytes = 0
         outer = self
 
         class Handler(socketserver.BaseRequestHandler):
@@ -281,7 +324,8 @@ class RemoteVTPUWorker:
                     for key in ("buf_id", "result_id"):
                         if key in meta:
                             meta[key] = xid(meta[key])
-                    for key in ("buf_ids", "arg_refs", "result_ids"):
+                    for key in ("buf_ids", "arg_refs", "result_ids",
+                                "kv_bufs"):
                         if meta.get(key) is not None:
                             meta[key] = [xid(v) for v in meta[key]]
                     meta["_conn_ns"] = conn_ns
@@ -359,6 +403,19 @@ class RemoteVTPUWorker:
                                     reply, remap_ids(meta), buffers,
                                     tenant)
                                 continue
+                            if kind == "GENERATE":
+                                # admission now; GENERATE_OK frames
+                                # stream from the engine thread
+                                outer._handle_generate(
+                                    reply, remap_ids(meta), tenant)
+                                continue
+                            if kind == "KV_SHIP":
+                                # ingest the shipped pages, then stream
+                                # exactly like GENERATE
+                                outer._handle_kv_ship(
+                                    reply, remap_ids(meta), buffers,
+                                    tenant)
+                                continue
                             if kind in _BARRIER_KINDS:
                                 outer.dispatcher.barrier(tenant)
                             outer._dispatch(reply, kind, remap_ids(meta),
@@ -417,6 +474,23 @@ class RemoteVTPUWorker:
 
     def start(self) -> None:
         self.dispatcher.start()
+        if self.engine is not None:
+            pool_bytes = int(getattr(self.engine.runner, "nbytes", 0) or 0)
+            if pool_bytes:
+                with self._lock:
+                    err = self._admit_resident(pool_bytes)
+                if err:
+                    self.dispatcher.stop()
+                    raise RuntimeError(
+                        f"serving KV pool does not fit the resident-HBM "
+                        f"budget: {err}")
+                self._engine_pool_bytes = pool_bytes
+            try:
+                self.engine.start()
+            except BaseException:
+                self._release_engine_pool()
+                self.dispatcher.stop()
+                raise
         self._thread = threading.Thread(target=self._server.serve_forever,
                                         name="tpf-remote-worker",
                                         daemon=True)
@@ -430,10 +504,22 @@ class RemoteVTPUWorker:
         self._server.shutdown()
         self._server.server_close()
         self.dispatcher.stop()
+        if self.engine is not None:
+            self.engine.stop()
+            self._release_engine_pool()
         with self._lock:
             pool, self._copy_pool = self._copy_pool, None
         if pool is not None:
             pool.shutdown(wait=True)
+
+    def _release_engine_pool(self) -> None:
+        """Release exactly the pool charge :meth:`start` made."""
+        with self._lock:
+            nbytes, self._engine_pool_bytes = self._engine_pool_bytes, 0
+            if nbytes:
+                self.resident_bytes = max(0, self.resident_bytes - nbytes)
+                if self.meter_client is not None:
+                    self.meter_client.charge_hbm(-nbytes)
 
     # -- resident-buffer accounting ------------------------------------
 
@@ -480,13 +566,32 @@ class RemoteVTPUWorker:
         EXECUTE that consumes it can split its transfer time into hidden
         and exposed."""
         t0 = time.monotonic()
-        arr = host.to(self.device)
+        with DEVICE_GATE.shared():
+            arr = host.to(self.device)
         with self._lock:
             self._copy_durs[buf_id] = time.monotonic() - t0
             # bounded: a client that PUTs and never EXECUTEs must not
             # grow this forever
             if len(self._copy_durs) > 4096:
                 self._copy_durs.pop(next(iter(self._copy_durs)))
+        return arr
+
+    def _take_shard(self, buf_id: str) -> torch.Tensor:
+        """Look up one uploaded buffer; an ephemeral one is consumed (out
+        of the table, its resident bytes released), since the client
+        never names it again."""
+        with self._lock:
+            arr = self._buffers.get(buf_id)
+            ephemeral = buf_id in self._ephemeral
+            self._copy_durs.pop(buf_id, None)
+        if arr is None:
+            raise KeyError(f"unknown buffer {buf_id}")
+        arr = self._resolve(arr)
+        if ephemeral:
+            with self._lock:
+                if self._buffers.pop(buf_id, None) is not None:
+                    self._ephemeral.discard(buf_id)
+                    self._release_resident(arr)
         return arr
 
     # -- central QoS dispatch: enqueue + device-side execution ----------
@@ -537,6 +642,154 @@ class RemoteVTPUWorker:
             reply("ERROR", {"error": str(e), "code": "BUSY",
                             "retry_after_ms": e.retry_after_ms}, [])
 
+    def _handle_generate(self, reply, meta, tenant) -> None:
+        """Connection handler side of GENERATE: validate, submit to the
+        engine with a streaming emit callback.  The tenant's HELLO QoS
+        class is its admission priority and its queue-wait SLO tier."""
+        if self.engine is None:
+            reply("ERROR", {"error": "no serving engine attached to "
+                                     "this worker"}, [])
+            return
+        try:
+            prompt = [int(t) for t in meta.get("prompt") or []]
+            max_tokens = int(meta.get("max_tokens", 1) or 1)
+            eos_id = meta.get("eos_id")
+            eos_id = int(eos_id) if eos_id is not None else None
+            deadline_ms = meta.get("deadline_ms")
+            if deadline_ms is not None:
+                deadline_ms = float(deadline_ms)
+        except (TypeError, ValueError) as e:
+            reply("ERROR", {"error": f"bad GENERATE request: {e}"}, [])
+            return
+        stream = bool(meta.get("stream", True))
+        emit = self._generate_emit(reply, stream)
+        try:
+            self.engine.submit(prompt, max_tokens,
+                               tenant=tenant.conn_id, qos=tenant.qos,
+                               eos_id=eos_id, deadline_ms=deadline_ms,
+                               emit=emit, trace=self._parse_trace(meta))
+        except BusyError as e:
+            reply("ERROR", {"error": str(e), "code": "BUSY",
+                            "retry_after_ms": e.retry_after_ms}, [])
+        except ValueError as e:
+            reply("ERROR", {"error": str(e)}, [])
+
+    @staticmethod
+    def _generate_emit(reply, stream: bool):
+        """The engine emit callback GENERATE and KV_SHIP stream through:
+        token frames as they land, one final frame with the stats, the
+        engine's shed / BUSY codes as structured ERROR."""
+        acc: List[int] = []
+
+        def emit(seq, new_tokens, done, info):
+            # engine thread; ``reply`` serializes on the connection's
+            # write lock like dispatcher replies do
+            try:
+                if not done:
+                    if stream and new_tokens:
+                        reply("GENERATE_OK",
+                              {"tokens": [int(t) for t in new_tokens],
+                               "done": False}, [])
+                    else:
+                        acc.extend(int(t) for t in new_tokens)
+                    return
+                code = info.get("code")
+                if code:
+                    emeta = {"error": info.get("error", "generation failed"),
+                             "code": code,
+                             "queue_wait_ms": info.get("queue_wait_ms", 0)}
+                    if seq.trace_spans:
+                        emeta["trace_spans"] = list(seq.trace_spans)
+                    reply("ERROR", emeta, [])
+                    return
+                tokens = [int(t) for t in new_tokens] if stream \
+                    else acc + [int(t) for t in new_tokens]
+                final = {"tokens": tokens, "done": True,
+                         "n_tokens": len(seq.tokens),
+                         "ttft_ms": seq.ttft_ms,
+                         "finish_reason": info.get("finish_reason", "")}
+                if seq.trace_spans:
+                    final["trace_spans"] = list(seq.trace_spans)
+                reply("GENERATE_OK", final, [])
+            except (ConnectionError, OSError):
+                # dead client socket: the engine keeps serving the other
+                # tenants; this sequence's tokens are dropped at each emit
+                pass
+
+        return emit
+
+    def _handle_kv_ship(self, reply, meta, buffers, tenant) -> None:
+        """Connection handler side of KV_SHIP (protocol v6): ingest a
+        prefill tier's finished KV pages into the engine's pool (deduped
+        per block against its prefix registry), then stream the
+        generation exactly like GENERATE.  The pages arrive inline (two
+        ``[L, n, n_kv, bs, D]`` frame buffers) or as ``kv_bufs`` naming
+        ephemeral PUTs the client sent ahead.  The KV_SHIP_OK receipt
+        goes out once the engine holds the pages; the engine may already
+        be streaming by then, so a short generation's final frame can
+        precede it (the client reads the stream until it has both)."""
+        if self.engine is None:
+            reply("ERROR", {"error": "no serving engine attached to "
+                                     "this worker"}, [])
+            return
+        if meta.get("_wire_version", 2) < protocol.KV_SHIP_MIN_VERSION:
+            # the feature must be negotiated, never smuggled to a peer
+            # that did not ask for v6
+            reply("ERROR", {"error": "KV_SHIP needs protocol >= "
+                                     f"{protocol.KV_SHIP_MIN_VERSION} "
+                                     "(negotiate v6 at HELLO)"}, [])
+            return
+        try:
+            prompt = [int(t) for t in meta.get("prompt") or []]
+            max_tokens = int(meta.get("max_tokens", 1) or 1)
+            eos_id = meta.get("eos_id")
+            eos_id = int(eos_id) if eos_id is not None else None
+            deadline_ms = meta.get("deadline_ms")
+            if deadline_ms is not None:
+                deadline_ms = float(deadline_ms)
+            keys = [int(x) for x in meta.get("keys") or []]
+            n_tokens = int(meta.get("n_tokens", len(prompt)))
+            if meta.get("first_token") is None:
+                # the prefill tier's last chunk always yields one; a
+                # shipped sequence without it could never decode
+                raise ValueError("KV_SHIP without first_token")
+            first = int(meta["first_token"])
+            kv_bufs = meta.get("kv_bufs")
+            if kv_bufs is not None:
+                k = self._take_shard(str(kv_bufs[0]))
+                v = self._take_shard(str(kv_bufs[1]))
+            elif len(buffers) >= 2:
+                k, v = buffers[0], buffers[1]
+            else:
+                k = v = None        # metadata-only ship (dedup probe)
+            if k is not None and (k.dim() != 5 or k.shape != v.shape or
+                                  k.shape[1] != len(keys)):
+                raise ValueError(
+                    f"KV pages {tuple(k.shape)} disagree with "
+                    f"{len(keys)} shipped keys")
+        except (TypeError, ValueError, KeyError) as e:
+            reply("ERROR", {"error": f"bad KV_SHIP request: {e}"}, [])
+            return
+        stream = bool(meta.get("stream", True))
+        emit = self._generate_emit(reply, stream)
+        payload = {"keys": keys, "k": k, "v": v,
+                   "first_token": first, "n_tokens": n_tokens,
+                   "bytes": self._leaf_nbytes(k) + self._leaf_nbytes(v)
+                   if k is not None else 0}
+        try:
+            self.engine.submit_shipped(
+                prompt, max_tokens, payload, tenant=tenant.conn_id,
+                qos=tenant.qos, eos_id=eos_id, deadline_ms=deadline_ms,
+                emit=emit, trace=self._parse_trace(meta))
+        except BusyError as e:
+            reply("ERROR", {"error": str(e), "code": "BUSY",
+                            "retry_after_ms": e.retry_after_ms}, [])
+            return
+        except ValueError as e:
+            reply("ERROR", {"error": str(e)}, [])
+            return
+        reply("KV_SHIP_OK", {"blocks": len(keys), "n_tokens": n_tokens}, [])
+
     @staticmethod
     def _parse_trace(meta) -> Optional[dict]:
         """Propagated span context from a v5 EXECUTE, or None; a
@@ -576,7 +829,8 @@ class RemoteVTPUWorker:
                     dur - (time.monotonic() - w0), 0.0)
                 args.append(arr)
             return args
-        return [b.to(self.device) for b in item.buffers]
+        with DEVICE_GATE.shared():
+            return [b.to(self.device) for b in item.buffers]
 
     def _item_args(self, item: WorkItem) -> list:
         """One item's flat argument list: resident refs and/or inline
@@ -597,7 +851,11 @@ class RemoteVTPUWorker:
         # the lock; what the PUT copy took beyond this wait ran hidden
         it = iter(item.buffers)
         w0 = time.monotonic()
-        out = [next(it).to(self.device) if arr is None else self._resolve(arr)
+        with DEVICE_GATE.shared():
+            inline = [next(it).to(self.device) for arr in resident
+                      if arr is None]
+        inline_it = iter(inline)
+        out = [next(inline_it) if arr is None else self._resolve(arr)
                for arr in resident]
         self._hidden_acc += max(dur - (time.monotonic() - w0), 0.0)
         return out
@@ -631,7 +889,8 @@ class RemoteVTPUWorker:
 
                 def _timed_dev_put(b):
                     t0 = time.monotonic()
-                    arr = b.to(device)
+                    with DEVICE_GATE.shared():
+                        arr = b.to(device)
                     return arr, time.monotonic() - t0
 
                 nxt.meta["_dev_args"] = [
@@ -684,7 +943,7 @@ class RemoteVTPUWorker:
             enq_m = time.monotonic()
             for item, _ in argsets:
                 item.meta["_enq_m"] = enq_m
-            with torch.no_grad():
+            with torch.no_grad(), DEVICE_GATE.shared():
                 outs = [_leaves(module(*args)) for _, args in argsets]
         except Exception:  # noqa: BLE001 - degrade, don't fail the batch
             # a bad item must not take the innocent requests with it:
@@ -710,7 +969,8 @@ class RemoteVTPUWorker:
             materialized = []
             for (item, _), leaves in zip(argsets, outs):
                 try:
-                    results = [leaf.detach().cpu() for leaf in leaves]
+                    with DEVICE_GATE.shared():
+                        results = [leaf.detach().cpu() for leaf in leaves]
                 except Exception as e:  # noqa: BLE001 - exec error
                     log.exception("fused flush failed")
                     self._safe_reply(item, "ERROR", {"error": str(e)}, [])
@@ -850,7 +1110,7 @@ class RemoteVTPUWorker:
                             self._hidden_acc)
         self._upload_span(item, up0, len(args))
         item.meta["_enq_m"] = time.monotonic()
-        with torch.no_grad():
+        with torch.no_grad(), DEVICE_GATE.shared():
             leaves = _leaves(module(*args))
         self.executions += 1
         # overlap: while this launch runs, start the next items' copies
@@ -876,14 +1136,11 @@ class RemoteVTPUWorker:
                                      {"error": "result_ids must be "
                                                "c-namespace ids"}, [])
                     return None
+            ids, shapes, dtypes = [], [], []
             with self._lock:
                 total = sum(self._leaf_nbytes(l) for l in leaves)
                 err = self._admit_resident(total)
-                if err:
-                    self._safe_reply(item, "ERROR", {"error": err}, [])
-                    return None
-                ids, shapes, dtypes = [], [], []
-                for j, leaf in enumerate(leaves):
+                for j, leaf in enumerate(leaves if not err else ()):
                     if want_ids is not None:
                         buf_id = str(want_ids[j])
                     else:
@@ -893,6 +1150,9 @@ class RemoteVTPUWorker:
                     ids.append(buf_id)
                     shapes.append(list(leaf.shape))
                     dtypes.append(protocol.WIRE_NAMES[leaf.dtype])
+            if err:
+                self._safe_reply(item, "ERROR", {"error": err}, [])
+                return None
             if meta.get("quiet"):
                 # pipelined client: it minted the ids itself and
                 # discards success replies unread
@@ -910,7 +1170,8 @@ class RemoteVTPUWorker:
         def flush(_leaves=leaves, _item=item):
             try:
                 f0 = self.tracer.clock.now() if _item.trace else 0.0
-                results = [leaf.detach().cpu() for leaf in _leaves]
+                with DEVICE_GATE.shared():
+                    results = [leaf.detach().cpu() for leaf in _leaves]
                 self._attr_flush_compute([_item], time.monotonic())
                 self._flush_span(_item, f0, len(results))
                 self._safe_reply(_item, "EXECUTE_OK",
@@ -960,6 +1221,8 @@ class RemoteVTPUWorker:
             "dispatch": self.dispatcher.snapshot(),
             "profile": self.profiler.snapshot()
             if self.profiler is not None else None,
+            "serving": self.engine.snapshot()
+            if self.engine is not None else None,
             "worker_uid": self.worker_uid,
             "wire_compression": wire,
             "devices": [{"id": 0, "platform": platform,
@@ -995,7 +1258,8 @@ class RemoteVTPUWorker:
         """PUT: a device-resident buffer, uploaded once and referenced
         many times.  v3: a client-minted ``buf_id`` (``c-`` namespace)
         copies on the pool and returns at once; ``quiet`` skips the
-        success reply."""
+        success reply; ``ephemeral`` frees the buffer when its first
+        consumer takes it (``_take_shard``)."""
         host = buffers[0]
         v3 = meta.get("_wire_version", 2) >= 3
         device_id = int(meta.get("device_id", 0)) if v3 else 0
@@ -1011,27 +1275,31 @@ class RemoteVTPUWorker:
             return
         with self._lock:
             err = self._admit_resident(self._leaf_nbytes(host))
-            if err:
-                reply("ERROR", {"error": err}, [])
-                return
-            if want_id is not None:
+            if not err and want_id is not None:
                 buf_id = str(want_id)
-            else:
+            elif not err:
                 self._buf_seq += 1
                 buf_id = f"buf-{self._buf_seq}"
+        if err:
+            # replies go out of the lock: framing one merges wire stats
+            reply("ERROR", {"error": err}, [])
+            return
         if want_id is not None:
             arr = self._pool().submit(self._timed_put, buf_id, host)
         else:
             # worker-minted ids keep the v2 contract: PUT_OK means the
             # buffer is resident (and a failed copy releases its charge)
             try:
-                arr = host.to(self.device)
+                with DEVICE_GATE.shared():
+                    arr = host.to(self.device)
             except Exception:
                 with self._lock:
                     self._release_resident(host)
                 raise
         with self._lock:
             self._buffers[buf_id] = arr
+            if v3 and meta.get("ephemeral"):
+                self._ephemeral.add(buf_id)
         if v3 and meta.get("quiet"):
             return
         reply("PUT_OK", {"buf_id": buf_id, "device_id": 0}, [])
@@ -1042,6 +1310,7 @@ class RemoteVTPUWorker:
             with self._lock:
                 arr = self._buffers.pop(buf_id, None)
                 self._copy_durs.pop(buf_id, None)
+                self._ephemeral.discard(buf_id)
             if arr is not None:
                 arr = self._resolve(arr)    # async PUT still in flight
                 with self._lock:
@@ -1058,8 +1327,10 @@ class RemoteVTPUWorker:
             reply("ERROR",
                   {"error": f"unknown buffer {meta['buf_id']}"}, [])
             return
-        reply("FETCH_OK", {}, [self._resolve(arr).detach().cpu()],
-              compress=True)
+        arr = self._resolve(arr)
+        with DEVICE_GATE.shared():
+            host = arr.detach().cpu()
+        reply("FETCH_OK", {}, [host], compress=True)
 
     def _dispatch(self, reply, kind, meta, buffers) -> None:
         if kind == "INFO":

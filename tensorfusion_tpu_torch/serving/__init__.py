@@ -13,10 +13,12 @@ pool, on the card (the port of ``tensorfusion_tpu/serving/``).
   :class:`~.runner.FakeRunner` (deterministic, for the tests).
 - :mod:`.spec` — draft models for speculative decoding (prompt-lookup
   n-gram, dialable arithmetic, small llama).
-- :mod:`.disagg` — the local disaggregated prefill pool.
+- :mod:`.disagg` — the disaggregated prefill pool, and the
+  :class:`~.disagg.RemoteKVShipper` that ships its pages to a remote
+  worker's engine (KV_SHIP).
 """
 
-from .disagg import PrefillPool  # noqa: F401
+from .disagg import PrefillPool, RemoteKVShipper  # noqa: F401
 from .engine import (DEFAULT_MAX_BATCH, DEFAULT_MAX_WAITING,  # noqa: F401
                      DEFAULT_PREFILL_CHUNK, Sequence, ServingEngine)
 from .kvpool import (BlockAccount, chain_key,  # noqa: F401
@@ -29,7 +31,7 @@ from .spec import (ArithmeticDraft, LlamaDraft,  # noqa: F401
                    NGramDraft, ReplayDraft, make_draft)
 
 __all__ = ["ServingEngine", "Sequence", "BlockAccount", "LlamaRunner",
-           "FakeRunner", "PrefillPool", "NGramDraft",
+           "FakeRunner", "PrefillPool", "RemoteKVShipper", "NGramDraft",
            "ArithmeticDraft", "LlamaDraft", "ReplayDraft", "make_draft",
            "init_paged_cache", "paged_decode_step",
            "paged_prefill_chunk", "paged_verify_step",

@@ -16,8 +16,9 @@ against ITS registry (``engine._activate_shipped``).
 Two stepping modes: ``inline=True`` advances ONE chunk per
 :meth:`PrefillPool.pump` call on the engine's stepper (deterministic —
 the tests use it); otherwise :meth:`PrefillPool.start` runs one thread
-per worker.  Shipping a payload to a remote decode worker over the wire
-comes with the remote-execution slice.
+per worker.  :class:`RemoteKVShipper` ships a payload to a remote decode
+worker's engine as a protocol-v6 ``KV_SHIP`` over a pooled peer link
+(``remoting/fabric.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from collections import deque
 from typing import Callable, List, Optional
 
 from ..clock import Clock, default_clock
+from ..remoting.fabric import PeerLinkPool
 from .kvpool import BlockAccount, prompt_block_keys
 
 #: prompt tokens prefilled per pool-worker advance (inline mode; the
@@ -282,3 +284,49 @@ class PrefillPool:
                 "retained_jobs": sum(len(w.retained)
                                      for w in self.workers),
             }
+
+
+class RemoteKVShipper:
+    """Remote prefill tier -> decode worker: ships a finished
+    :meth:`_PrefillWorker.payload` to a remote worker's engine as a
+    ``KV_SHIP`` over a :class:`~..remoting.fabric.PeerLink` leased from
+    its own pool, so the pages ship raw (exact) with connection reuse
+    per ``(url, token)`` and the stale-uid re-dial on a decode-worker
+    restart."""
+
+    def __init__(self, target_url: str, token: str = ""):
+        self.target_url = str(target_url)
+        self.token = token
+        self.pool = PeerLinkPool()
+        self.shipped_jobs = 0
+        self.shipped_bytes = 0
+
+    def ship(self, prompt: List[int], payload: Optional[dict],
+             max_tokens: int = 1, eos_id: Optional[int] = None,
+             on_token: Optional[Callable[[int], None]] = None
+             ) -> Optional[dict]:
+        """Ship one finished prefill payload and consume the decode
+        stream; None passes through (the pool could not hold the prompt
+        and the caller prefills inline)."""
+        if payload is None:
+            return None
+        link = self.pool.lease(self.target_url, token=self.token)
+        try:
+            out = link.device.ship_kv(
+                prompt, max_tokens, payload["keys"], payload["k"],
+                payload["v"], payload["first_token"],
+                payload["n_tokens"], eos_id=eos_id, on_token=on_token)
+        finally:
+            self.pool.release(link)
+        self.shipped_jobs += 1
+        self.shipped_bytes += int(payload.get("bytes") or 0)
+        return out
+
+    def snapshot(self) -> dict:
+        return {"target": self.target_url,
+                "shipped_jobs": self.shipped_jobs,
+                "shipped_bytes": self.shipped_bytes,
+                "pool": self.pool.snapshot()}
+
+    def close(self) -> None:
+        self.pool.close()

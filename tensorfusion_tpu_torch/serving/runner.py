@@ -28,60 +28,15 @@ engine's tests drive.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DEVICE_GATE, DeviceLike, resolve_device
 from . import kvpool
-
-
-class _CaptureGate:
-    """Eager runner calls enter shared; a graph capture enters alone,
-    once the shared holders have left, and holds new ones off until it
-    is done."""
-
-    def __init__(self):
-        self._cv = threading.Condition()
-        self._shared = 0
-        self._capturing = False     # a capture holds or waits for the gate
-
-    @contextlib.contextmanager
-    def shared(self):
-        with self._cv:
-            while self._capturing:
-                self._cv.wait()
-            self._shared += 1
-        try:
-            yield
-        finally:
-            with self._cv:
-                self._shared -= 1
-                self._cv.notify_all()
-
-    @contextlib.contextmanager
-    def exclusive(self):
-        with self._cv:
-            while self._capturing:
-                self._cv.wait()
-            self._capturing = True
-            while self._shared:
-                self._cv.wait()
-        try:
-            yield
-        finally:
-            with self._cv:
-                self._capturing = False
-                self._cv.notify_all()
-
-
-#: one gate for every runner of the process: they share the card
-_GATE = _CaptureGate()
 
 
 @dataclasses.dataclass
@@ -111,7 +66,8 @@ class LlamaRunner:
     Graphs are captured lazily on the calling thread, or up front by
     :meth:`warmup`.  A capture must not overlap work that another thread
     launches on the card: every runner's eager calls (``prefill`` and the
-    page moves) and every capture pass one process-wide gate, so a
+    page moves), the remote worker's device work (``remoting/worker.py``)
+    and every capture pass one process-wide gate (:data:`~..device.DEVICE_GATE`), so a
     capture waits for the eager calls in flight, and holds new ones off
     until it is done (a threaded ``PrefillPool`` prefills on its own
     runners while the engine's stepper captures a verify bucket or a
@@ -173,7 +129,7 @@ class LlamaRunner:
         stream, as capture needs), so that run writes only into scratch
         block 0."""
         t0 = time.perf_counter()
-        with _GATE.exclusive():
+        with DEVICE_GATE.exclusive():
             inputs = [torch.zeros(a.shape, dtype=torch.int32,
                                   device=self.device) for a in arrays]
             side = torch.cuda.Stream()
@@ -207,7 +163,7 @@ class LlamaRunner:
         m = kvpool.pow2_bucket(len(table), lo=4)
         tab = torch.zeros((m,), dtype=torch.int32)
         tab[:len(table)] = torch.tensor(table, dtype=torch.int32)
-        with _GATE.shared():
+        with DEVICE_GATE.shared():
             logits, _ = kvpool.paged_prefill_chunk(
                 self.params, torch.tensor(tokens, dtype=torch.int32, device=dev),
                 self.cache, tab.to(dev), start_pos, self.config)
@@ -249,7 +205,7 @@ class LlamaRunner:
         if not pairs:
             return
         dev = self.params["tok_emb"].device
-        with _GATE.shared():
+        with DEVICE_GATE.shared():
             src = torch.tensor([p[0] for p in pairs], device=dev)
             dst = torch.tensor([p[1] for p in pairs], device=dev)
             for layers in self.cache.values():
@@ -259,7 +215,7 @@ class LlamaRunner:
     def read_blocks(self, ids: List[int]):
         """Extract pages as CPU tensors ``(k, v)``, each
         ``[L, n, n_kv, bs, D]``."""
-        with _GATE.shared():
+        with DEVICE_GATE.shared():
             idx = torch.tensor(ids, device=self.params["tok_emb"].device)
             return tuple(torch.stack([layer[idx] for layer in self.cache[kind]]).cpu()
                          for kind in ("k", "v"))
@@ -267,7 +223,7 @@ class LlamaRunner:
     def write_blocks(self, ids: List[int], k, v) -> None:
         """Inject pages into this pool's blocks, in place.  ``k``/``v``:
         ``[L, n, n_kv, bs, D]`` tensors or arrays."""
-        with _GATE.shared():
+        with DEVICE_GATE.shared():
             idx = torch.tensor(ids, device=self.params["tok_emb"].device)
             for kind, pages in (("k", k), ("v", v)):
                 for layer, page in zip(self.cache[kind], pages):

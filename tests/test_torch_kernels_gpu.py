@@ -462,3 +462,156 @@ def test_remote_execute_launches_the_flash_kernel_per_layer(gen):
             dev.close()
     finally:
         worker.stop()
+
+
+def test_worker_device_work_beside_a_hosted_engine_capturing_lazily(gen):
+    """One worker process: an engine with an n-gram draft (so verify and
+    wider decode buckets are captured lazily, on the engine's stepper
+    thread) streams speculative GENERATEs to one connection while another
+    loops PUT, EXECUTE and FETCH of a small exported program, whose
+    copies, module calls and fetches run on the worker's copy pool,
+    dispatcher thread and handler thread.  The loop is running before the
+    first request arrives, and a short switch interval interleaves the
+    threads finely.  No thread may fail, every request's tokens equal
+    generate's in f32, and every EXECUTE equals the same product on the
+    card."""
+    import random
+    import sys
+    import threading
+    import time
+
+    from tensorfusion_tpu_torch.remoting import RemoteDevice, RemoteVTPUWorker
+    from tensorfusion_tpu_torch.serving import (LlamaRunner, NGramDraft,
+                                                ServingEngine)
+
+    cfg = llama.LlamaConfig(vocab_size=1024, dim=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, ffn_dim=512, dtype=torch.float32)
+    params = llama.init_params(cfg, gen)
+    runner = LlamaRunner(params, cfg, num_blocks=512, block_size=4)
+    runner.warmup(max_batch=1, prompt_len=16, chunk=16)   # decode, batch 1
+    engine = ServingEngine(runner, max_batch=4, prefill_chunk_tokens=32,
+                           draft=NGramDraft(n=2), spec_k=3)
+    rng = random.Random(4)
+    # repeated phrases, so the draft proposes and verify steps run
+    requests = [([rng.randrange(cfg.vocab_size) for _ in range(8)]
+                 * rng.randrange(4, 12), rng.randrange(12, 24))
+                for _ in range(12)]
+    w = torch.randn((256, 256), generator=gen, device="cuda")
+    outs, failures = {}, []
+    looping, done = threading.Event(), threading.Event()
+    executes = [0]
+
+    hook, interval = threading.excepthook, sys.getswitchinterval()
+    threading.excepthook = lambda args: failures.append(
+        f"{args.thread.name}: {args.exc_type.__name__}: {args.exc_value}")
+    worker = RemoteVTPUWorker(engine=engine, device="cuda")
+    worker.start()
+    gen_dev = RemoteDevice(worker.url, timeout_s=120)
+    exec_dev = RemoteDevice(worker.url, timeout_s=120)
+
+    def generate(i):
+        prompt, new = requests[i]
+        try:
+            outs[i] = gen_dev.generate(prompt, new)["tokens"]
+        except Exception as e:  # noqa: BLE001 - reported below
+            failures.append(f"generate {i}: {type(e).__name__}: {e}")
+
+    def execute_loop():
+        try:
+            remote = exec_dev.remote_jit(lambda w, x: torch.tanh(x @ w))
+            wref = exec_dev.put(w.cpu())
+            while not done.is_set():
+                x = torch.randn((64, 256), generator=gen, device="cuda")
+                xref = exec_dev.put(x.cpu())
+                got = remote(wref, xref)
+                torch.testing.assert_close(xref.fetch(), x.cpu(), rtol=0, atol=0)
+                xref.free()
+                torch.testing.assert_close(got, torch.tanh(x @ w).cpu(),
+                                           rtol=1e-4, atol=1e-5)
+                executes[0] += 1
+                if executes[0] == 20:
+                    looping.set()
+            wref.free()
+        except Exception as e:  # noqa: BLE001 - reported below
+            failures.append(f"execute loop: {type(e).__name__}: {e}")
+        finally:
+            looping.set()
+
+    looper = threading.Thread(target=execute_loop)
+    try:
+        looper.start()
+        assert looping.wait(120)
+        sys.setswitchinterval(1e-4)
+        threads = []
+        for i in range(len(requests)):
+            threads.append(threading.Thread(target=generate, args=(i,)))
+            threads[-1].start()
+            if i % 3 == 2:
+                time.sleep(0.05)      # waves: later prompts join verifying ones
+        for t in threads:
+            t.join(timeout=180)
+    finally:
+        sys.setswitchinterval(interval)
+        done.set()
+        looper.join(timeout=60)
+        gen_dev.close()
+        exec_dev.close()
+        worker.stop()
+        threading.excepthook = hook
+    assert not failures, failures
+    assert not looper.is_alive() and not any(t.is_alive() for t in threads)
+    assert len(outs) == len(requests) and executes[0] > 20
+    assert any(k[0] == "verify" for k in runner.graphs)
+    assert engine.snapshot()["spec"]["steps"] > 0
+    for i, (prompt, new) in enumerate(requests):
+        want = llama.generate(params, torch.tensor([prompt], device="cuda"),
+                              new, cfg)[0].tolist()
+        assert outs[i] == want, i
+
+
+def test_worker_hosted_engine_serves_generate_and_kv_ship_on_the_card(gen):
+    """GENERATE and KV_SHIP into a worker-hosted engine on the card, at
+    bf16 page size large enough for the ephemeral-PUT route: f32 tokens
+    equal generate's, KV_SHIP's equal GENERATE's, the pool is charged
+    while the worker serves and released at stop, and the page uploads
+    leave nothing resident."""
+    from tensorfusion_tpu_torch.remoting import RemoteDevice, RemoteVTPUWorker
+    from tensorfusion_tpu_torch.serving import (LlamaRunner, PrefillPool,
+                                                RemoteKVShipper, ServingEngine)
+    from tensorfusion_tpu_torch.serving.disagg import _Job
+
+    cfg = llama.LlamaConfig(vocab_size=1024, dim=512, n_layers=2, n_heads=4,
+                            n_kv_heads=2, ffn_dim=1024, dtype=torch.float32)
+    params = llama.init_params(cfg, gen)
+    runner = LlamaRunner(params, cfg, num_blocks=257, block_size=16)
+    engine = ServingEngine(runner, max_batch=4, prefill_chunk_tokens=64)
+    pool = PrefillPool([LlamaRunner(params, cfg, num_blocks=257,
+                                    block_size=16)], inline=True)
+    prompt = torch.randint(0, cfg.vocab_size, (300,), generator=gen,
+                           device="cuda").tolist()
+    want = llama.generate(params, torch.tensor([prompt], device="cuda"), 12,
+                          cfg)[0].tolist()
+    worker = RemoteVTPUWorker(engine=engine, device="cuda")
+    worker.start()
+    try:
+        assert worker.resident_bytes == runner.nbytes
+        dev = RemoteDevice(worker.url, timeout_s=120)
+        try:
+            assert dev.generate(prompt, 12)["tokens"] == want
+            job = _Job(None, prompt, 1)
+            while pool.workers[0].advance(job) is False:
+                pass
+            payload = pool.workers[0].payload(job)
+            assert payload["k"].numel() * 4 >= 256 << 10   # rides PUTs
+            shipper = RemoteKVShipper(worker.url)
+            try:
+                assert shipper.ship(prompt, payload, 12)["tokens"] == want
+            finally:
+                shipper.close()
+            assert dev.info()["resident_bytes"] == runner.nbytes
+        finally:
+            dev.close()
+    finally:
+        worker.stop()
+    assert worker.resident_bytes == 0
+    assert engine.snapshot()["kv"]["used"] == 0

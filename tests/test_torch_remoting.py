@@ -348,7 +348,7 @@ def test_worker_prefetch_depth_accounting(worker):
         dev.close()
 
 
-LATER_KINDS = ["COMPILE_MLIR", "GENERATE", "KV_SHIP", "SNAPSHOT", "RESTORE",
+LATER_KINDS = ["COMPILE_MLIR", "SNAPSHOT", "RESTORE",
                "ALLREDUCE_SHIP", "ALLGATHER_SHIP", "SNAPSHOT_DELTA",
                "MIGRATE_FREEZE", "MIGRATE_COMMIT", "FABRIC_OPEN",
                "FABRIC_ALLREDUCE", "PEER_REDUCE", "PEER_INSTALL"]
@@ -359,7 +359,8 @@ def test_later_part_kinds_get_unknown_kind(worker):
     reference's ``unknown kind`` ERROR, never a silent success; the
     connection keeps serving after each."""
     assert set(LATER_KINDS) | {"HELLO", "INFO", "COMPILE", "PUT", "FREE",
-                               "FETCH", "EXECUTE"} == \
+                               "FETCH", "EXECUTE", "GENERATE",
+                               "KV_SHIP"} == \
         set(protocol.REQUEST_KINDS)
     dev = _dev(worker)
     try:
@@ -433,6 +434,10 @@ def _from_file_blob(path) -> bytes:
         arg("shared", {"as_none": True}), arg("size", {"as_int": 16})])
 
 
+def _arg(name, value):
+    return {"name": name, "arg": value, "kind": 1}
+
+
 def _bad_blobs(marker):
     pwn = pickle.dumps(_Pwn(marker))
     good = _good_blob()
@@ -466,6 +471,17 @@ def _bad_blobs(marker):
             good, replace={"models/model.json": lambda d: d.replace(
                 b"torch.ops.aten.tanh.default", b"torch.os.system")}),
         "aten_from_file": _from_file_blob(marker),
+        # writes to the worker's output
+        "aten_print": _with_first_node(good, "torch.ops.aten._print.default", [
+            _arg("s", {"as_string": "a tenant wrote this"})]),
+        # process-wide state every tenant shares
+        "cufft_plan_cache": _with_first_node(
+            good, "torch.ops.aten._cufft_set_plan_cache_max_size.default", [
+                _arg("device_index", {"as_int": 0}),
+                _arg("max_size", {"as_int": 0})]),
+        # draws from the worker's process-wide random generator
+        "seeded_random": _with_first_node(
+            good, "torch.ops.aten.bernoulli.default"),
         "unchecked_index": _with_first_node(
             good, "torch.ops.aten._unsafe_index.Tensor"),
         "uninitialized_memory": _with_first_node(
@@ -493,9 +509,10 @@ def test_compile_refuses_unsafe_programs(worker, tmp_path):
     """A program that asks to unpickle anything, carries a member the
     format does not name, or calls a target a tenant may not (outside
     ``torch.ops``, another namespace, an unlisted higher-order operator,
-    file I/O, unchecked indexing, uninitialized memory, also when passed
-    as an operator argument) is refused with ERROR before a byte of it
-    is deserialized; the same program unaltered compiles."""
+    file I/O, printing, process-wide cuFFT state, the process's random
+    generator, unchecked indexing, uninitialized memory, also when
+    passed as an operator argument) is refused with ERROR before a byte
+    of it is deserialized; the same program unaltered compiles."""
     marker = tmp_path / "pwned"
     dev = _dev(worker)
     try:
@@ -526,6 +543,58 @@ def test_from_file_program_reads_the_file_unless_refused(tmp_path):
     torch.testing.assert_close(leaked, secret + 1)
     with pytest.raises(ValueError, match="from_file"):
         program.check_archive(blob)
+
+
+def _shipped_programs():
+    """(name, function, example arguments) of every program the port
+    ships: the 2-layer Llama forward and chip_smoke.py's last-position
+    forward with flash and full attention, the decoder layer step of
+    ``step_resident`` chains, in f32 and bf16, and the tests' programs."""
+    import dataclasses
+
+    import chip_smoke
+
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for impl in ("flash", "full"):
+            cfg = dataclasses.replace(tl.LlamaConfig.tiny(), n_layers=2,
+                                      attn_impl=impl, dtype=dtype)
+            p = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+            toks = torch.zeros((2, 16), dtype=torch.int32)
+            tag = f"{impl}-{str(dtype)[6:]}"
+            out += [
+                (f"forward-{tag}",
+                 lambda p, t, cfg=cfg: tl.forward(p, t, cfg)[:, -1], (p, toks)),
+                (f"last_logits-{tag}", chip_smoke._last_logits(tl, cfg),
+                 (p, toks)),
+                (f"layer_step-{tag}",
+                 lambda layer, x, cfg=cfg: tl._layer(cfg, layer, x),
+                 (p["layers"][0], p["tok_emb"][toks.long()]))]
+    a, w = torch.ones(4, 4), torch.ones(4, 4)
+    out += [("tanh_plus_one", lambda x: torch.tanh(x) + 1, (a,)),
+            ("tanh_matmul_plus_one", lambda a, b: torch.tanh(a @ b) + 1.0,
+             (a, w)),
+            ("pytree_outputs",
+             lambda x: {"double": x * 2, "stats": (x.sum(), x.max())}, (a,)),
+            ("module_with_weights", torch.nn.Sequential(
+                torch.nn.Linear(4, 3), torch.nn.Tanh()), (a,)),
+            ("tanh_matmul", lambda w, x: torch.tanh(x @ w), (w, a)),
+            ("cube", lambda x: (x @ x) @ x, (a,)),
+            ("affine", lambda x: x * 2.0 + 1.0, (a,))]
+    return out
+
+
+@pytest.mark.parametrize("name,fn,args", _shipped_programs(),
+                         ids=[p[0] for p in _shipped_programs()])
+def test_shipped_programs_pass_the_check(name, fn, args):
+    """Every program the port ships calls only the closed operator set:
+    the export of each passes ``check_archive`` (and the ones with a
+    non-core op do so through the written list)."""
+    leaves, treedef = torch.utils._pytree.tree_flatten(args)
+    blob, _, _ = program.export_program(
+        fn, [(tuple(l.shape), l.dtype) for l in leaves], treedef)
+    program.check_archive(blob)
 
 
 def test_export_is_canonical():

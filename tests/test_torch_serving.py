@@ -676,7 +676,9 @@ def test_capture_gate_holds_eager_calls_off_a_capture():
     import threading
     import time
 
-    gate = tr._CaptureGate()
+    from tensorfusion_tpu_torch.device import _CaptureGate
+
+    gate = _CaptureGate()
     events = []
     inside = threading.Event()
     release = threading.Event()
