@@ -9,7 +9,7 @@ and make.  It builds the kernels (flash forward, flash backward) and
 libtpf_limiter.so from the checkout (failing if ptxas reports a spill),
 holds every kernel against its plain PyTorch version on the card and
 times it at the main path's shape and at a long one, then drives the
-port's five paths at Llama-3-8B width (random weights from fixed seeds),
+port's seven paths at Llama-3-8B width (random weights from fixed seeds),
 each with the kernel launch counts set to 0 just before it and read just
 after:
 
@@ -35,20 +35,35 @@ after:
   metered, and a ``RemoteDevice`` over loopback; the 8-layer weights PUT
   resident, a ``remote_jit`` last-position forward (flash) called at
   each serving shape, a ``step_resident`` chain and a micro-batched
-  burst from two connections.
+  burst from two connections;
+- federation: three metered workers on the card; a
+  ``remoting.FederatedDevice`` runs the last-position forward split over
+  two of them (a replica of the 8-layer weights on each), a fabric-ring
+  all-reduce of one decoder layer's bytes over all three (worker to
+  worker, raw and q8) and a model-parallel MLP split along its hidden
+  width;
+- migration: the 8-layer weights and a tenant's resident state move
+  between two metered workers in two pre-copy rounds, a freeze and a
+  commit (and once more, aborted); a worker-hosted engine is frozen
+  mid-stream; the target is SNAPSHOTted into its state root and RESTOREd
+  into a fresh worker.
 
 It checks the answers of each: tokens and logits (the engine's f32
 tokens against ``generate``, its graphed step against the eager one, its
 bf16 logits against f32; the remote logits' argmax against the local
 forward's and their bf16 distance from f32; the f32 tokens of a
 worker-hosted engine against ``generate``, of KV_SHIP against GENERATE
-and of a q8 connection against a raw one), gradients against the
-dense attention path, the remote worker's charges against the local
+and of a q8 connection against a raw one; the federated halves, the
+migrated and the restored calls bit for bit against the local or source
+call, the raw ring against its own arithmetic and the q8 ring within its
+per-hop bound, no collective byte through the client), gradients against
+the dense attention path, the remote worker's charges against the local
 FLOP estimate and the resident bytes, and ends with the metered
 train-step bench (``tensorfusion_tpu_torch.bench_train``).  Each phase
 prints one JSON line; any failure raises and exits non-zero.  The line
 before the last two is the kernel table (its ``launches_by_path`` has
-``serve``, ``engine``, ``train``, ``remote`` and ``remote_serve``), the
+``serve``, ``engine``, ``train``, ``remote``, ``remote_serve``,
+``federation`` and ``migrate``), the
 line before the last is nvidia-smi's name and power limit, and the last
 line is
 
@@ -87,6 +102,11 @@ REMOTE_CALLS = 12                          # timed remote EXECUTEs per shape
 REMOTE_QOS = ("high", "medium", "low")     # the remote serving connections
 REMOTE_WAVE_GAP_S = 1.0                    # seconds between remote request waves
 PREFILL_POOL = (257, 16)                   # prefill tier: blocks x block size
+FED_CALLS = 4                              # timed federated forward calls
+FREEZE_POOL = (17, 16)                     # frozen engine: blocks x block size
+FREEZE_NEW = 96                            # tokens of the frozen stream
+FREEZE_AT = 24                             # tokens streamed before the freeze
+FREEZE_S = 0.5                             # seconds the engine stays frozen
 
 
 def emit(phase: str, **fields) -> None:
@@ -445,6 +465,11 @@ def _float(tree):
     return tree.float()
 
 
+def _rel(a, b):
+    """max |a - b| over max |b|, in f32."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
 def phase_serve_check(torch, llama, params, cfg):
     # bf16, full width and depth: the kernel's last-position prefill
     # logits against the dense attention path's, and both against the same
@@ -463,11 +488,8 @@ def phase_serve_check(torch, llama, params, cfg):
     if not torch.isfinite(flash).all():
         raise RuntimeError("non-finite prefill logits")
 
-    def rel(a, b):
-        return ((a - b).abs().max() / b.abs().max()).item()
-
-    bf16 = {"flash_vs_full": rel(flash, full), "flash_vs_f32": rel(flash, exact),
-            "full_vs_f32": rel(full, exact)}
+    bf16 = {"flash_vs_full": _rel(flash, full), "flash_vs_f32": _rel(flash, exact),
+            "full_vs_f32": _rel(full, exact)}
     if not bf16["flash_vs_f32"] <= 1.5 * bf16["full_vs_f32"]:
         raise RuntimeError(f"bf16 prefill logits: the kernel path is further "
                            f"from f32 than the dense path allows: {bf16}")
@@ -727,12 +749,9 @@ def phase_engine_check(torch, llama, serving, params, cfg, ref):
                                           0, cfg)
     del cache
 
-    def rel(a, b):
-        return ((a - b).abs().max() / b.abs().max()).item()
-
-    bf16 = {"paged_vs_f32": rel(paged, ref["exact"][0]),
-            "full_vs_f32": rel(ref["full"][0], ref["exact"][0]),
-            "paged_vs_full": rel(paged, ref["full"][0])}
+    bf16 = {"paged_vs_f32": _rel(paged, ref["exact"][0]),
+            "full_vs_f32": _rel(ref["full"][0], ref["exact"][0]),
+            "paged_vs_full": _rel(paged, ref["full"][0])}
     if not (torch.isfinite(paged).all() and
             bf16["paged_vs_f32"] <= 1.5 * bf16["full_vs_f32"]):
         raise RuntimeError(f"bf16 paged prefill logits too far from f32: {bf16}")
@@ -1199,9 +1218,6 @@ def phase_train(torch, ops, llama, bench_train, limiter_lib, cfg, rates):
 def phase_train_check(torch, llama, params, cfg):
     """Gradients through the kernels against the dense attention path."""
 
-    def rel(a, b):
-        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
-
     # bf16 on the train phase's 8-layer weights: the losses and named
     # gradient leaves through flash, through full, and through full in f32
     # (the same weights cast).  Held as serve_check holds the logits: the
@@ -1236,9 +1252,9 @@ def phase_train_check(torch, llama, params, cfg):
     for name in flash:
         if not torch.isfinite(flash[name]).all():
             raise RuntimeError(f"non-finite bf16 {name} through the kernels")
-        bf16[name] = {"flash_vs_full": rel(flash[name], full[name]),
-                      "flash_vs_f32": rel(flash[name], exact[name]),
-                      "full_vs_f32": rel(full[name], exact[name])}
+        bf16[name] = {"flash_vs_full": _rel(flash[name], full[name]),
+                      "flash_vs_f32": _rel(flash[name], exact[name]),
+                      "full_vs_f32": _rel(full[name], exact[name])}
     del flash, full, exact
     bad = {n: d for n, d in bf16.items() if n != "mean_loss"
            and not d["flash_vs_f32"] <= 1.5 * d["full_vs_f32"]}
@@ -1313,9 +1329,6 @@ def phase_remote(torch, ops, llama, remoting, estimate_flops, bench_train,
     fn = _last_logits(llama, cfg)
     shapes = [(b, t, torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
                                    device=DEVICE)) for b, t in MAIN_SHAPES]
-
-    def rel(a, b):
-        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
     # local references, before the counted window: the same call on the
     # card (timed), the dense bf16 path, and the dense path in f32
@@ -1411,7 +1424,7 @@ def phase_remote(torch, ops, llama, remoting, estimate_flops, bench_train,
                 chain_launches = ops.launch_counts()["flash_attn_fwd"] - chain_launch0
                 for _ in range(8):
                     want_x = llama._layer(cfg, params["layers"][0], want_x)
-                chain_rel = rel(chained, want_x.cpu())
+                chain_rel = _rel(chained, want_x.cpu())
                 state.free()
 
                 # micro-batched burst: a plug, then 4 submits alternating
@@ -1454,9 +1467,9 @@ def phase_remote(torch, ops, llama, remoting, estimate_flops, bench_train,
     for b, t, _ in shapes:
         ref = local[(b, t)]
         out = got[(b, t)].to(DEVICE)
-        bf16 = {"remote_vs_local": rel(out, ref["logits"]),
-                "remote_vs_f32": rel(out, ref["exact"]),
-                "full_vs_f32": rel(ref["full"], ref["exact"])}
+        bf16 = {"remote_vs_local": _rel(out, ref["logits"]),
+                "remote_vs_f32": _rel(out, ref["exact"]),
+                "full_vs_f32": _rel(ref["full"], ref["exact"])}
         rows.append({"batch": b, "prompt": t,
                      "equal_local": torch.equal(out, ref["logits"]),
                      "argmax_equal_local": torch.equal(out.argmax(-1),
@@ -1516,6 +1529,547 @@ def phase_remote(torch, ops, llama, remoting, estimate_flops, bench_train,
         problems.append(f"micro-batched burst: {burst}, want {want_burst_mflops} MFLOPs")
     if problems:
         raise RuntimeError("remote phase: " + "; ".join(problems))
+    return launches
+
+
+def _replica(torch, remoting, dev, tree):
+    """The handles of ``tree`` (RemoteBuffers of one worker) bound to the
+    connection ``dev`` under the same buffer ids: a tenant rebinding to
+    another worker after a migration or a restore."""
+    return torch.utils._pytree.tree_map(
+        lambda h: remoting.RemoteBuffer(dev, h.buf_id, h.shape, h.dtype), tree)
+
+
+def _meter_row(meter):
+    return {"launches": meter.launches, "mflops": meter.charged_mflops,
+            "hbm_bytes": meter.hbm_charged_bytes}
+
+
+def phase_federation(torch, ops, llama, remoting, bench_train, limiter_lib, cfg,
+                     params, host, smi):
+    """Federated execution over three metered workers on the card, each on
+    its own limiter segment, reached over loopback:
+
+    (a) ``federated_jit`` of the last-position forward (flash) over two of
+        them, each holding a replica of the 8-layer weights; a 4 x 1024
+        batch splits 2 + 2 and gathers by concat.  Each half must equal the
+        local forward of that half bit for bit (same card, same shapes), and
+        the whole keep the local argmax and the 1.5x rule against f32.
+    (b) a fabric-ring ``all_reduce`` over all three of per-worker bf16
+        partials the size of one decoder layer's weights, raw and then q8,
+        installed on every member: raw bit-equal to the ring's own
+        arithmetic (f32 adds, one bf16 rounding a hop) done locally, q8
+        within the per-hop bound, no payload through the client.
+    (c) ``model_parallel_jit`` of layer 0's SwiGLU MLP split along the
+        hidden 14336 over the three workers: the [4, 1024, 4096] bf16
+        partials go through the ring; the result must equal the local
+        emulation (the same shards on the card, the ring's sum) bit for bit
+        and sit within bf16 mean|err|/mean|ref| < 2e-2 of the f32 MLP.
+
+    ``fed_supported()`` and ``fabric_supported()`` must hold, so the card
+    run cannot take the protocol fallback.  The flash launches of (a)-(c)
+    are counted from 0."""
+    import contextlib
+
+    from tensorfusion_tpu_torch.remoting.federation import _split_points
+
+    t_phase = time.perf_counter()
+    fn = _last_logits(llama, cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    b, t = MAIN_SHAPES[0]
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device=DEVICE)
+    points = _split_points(b, 2)
+    halves = [(points[i], points[i + 1]) for i in range(2)]
+
+    # local references, before the counted window
+    want = fn(params, tokens)
+    want_halves = [fn(params, tokens[lo:hi]) for lo, hi in halves]
+    full = _last_logits(llama, dataclasses.replace(cfg, attn_impl="full"))(
+        params, tokens)
+    p32 = _float(params)
+    exact = _last_logits(llama, dataclasses.replace(
+        cfg, dtype=torch.float32, attn_impl="full"))(p32, tokens)
+    del p32
+    layer0 = params["layers"][0]
+    layer_numel = sum(v.numel() for v in torch.utils._pytree.tree_leaves(layer0))
+    parts = [torch.randn(layer_numel, generator=gen, device=DEVICE,
+                         dtype=torch.float32).to(cfg.dtype) for _ in range(3)]
+    ring_want = parts[0]
+    # the largest magnitude any hop ships: a partial, a running sum, the total
+    ring_max = float(ring_want.float().abs().max())
+    for p in parts[1:]:
+        ring_want = (p.float() + ring_want.float()).to(cfg.dtype)
+        ring_max = max(ring_max, float(ring_want.float().abs().max()))
+    parts_host = [p.cpu() for p in parts]
+    ring_want = ring_want.cpu()
+    del parts
+    mlp_x = torch.randn((b, t, cfg.dim), generator=gen, device=DEVICE,
+                        dtype=torch.float32).to(cfg.dtype)
+    wg, wu, wd = (layer0["mlp"][k] for k in ("w_gate", "w_up", "w_down"))
+    hidden = _split_points(wg.shape[1], 3)
+
+    def stage1(w_gate, w_up, w_down, x):
+        return llama._mlp({"w_gate": w_gate, "w_up": w_up, "w_down": w_down}, x)
+
+    def stage2(a):
+        return a.float()
+
+    mlp_parts = [stage1(wg[:, lo:hi].contiguous(), wu[:, lo:hi].contiguous(),
+                        wd[lo:hi].contiguous(), mlp_x)
+                 for lo, hi in zip(hidden, hidden[1:])]
+    mlp_emul = mlp_parts[0]
+    for p in mlp_parts[1:]:
+        mlp_emul = (p.float() + mlp_emul.float()).to(cfg.dtype)
+    mlp_emul = mlp_emul.float().cpu()
+    mlp_local = stage1(wg, wu, wd, mlp_x).float().cpu()
+    mlp_f32 = stage1(wg.float(), wu.float(), wd.float(), mlp_x.float()).cpu()
+    mlp_args = [w.cpu() for w in (wg, wu, wd)] + [mlp_x.cpu()]
+    del mlp_parts
+    torch.cuda.empty_cache()
+
+    host_tokens = tokens.cpu()
+    with contextlib.ExitStack() as stack:
+        meters = [stack.enter_context(bench_train.worker_segment(
+            limiter_lib, WORK / f"fed{i}", f"fed{i}", DEVICE)) for i in range(3)]
+        workers = [remoting.RemoteVTPUWorker(meter_client=m, device=DEVICE)
+                   for m in meters]
+        for w in workers:
+            w.start()
+            stack.callback(w.stop)
+        fed2 = remoting.FederatedDevice([w.url for w in workers[:2]], timeout_s=900)
+        stack.callback(fed2.close)
+        fed3 = remoting.FederatedDevice([w.url for w in workers], ring=True,
+                                        timeout_s=900)
+        stack.callback(fed3.close)
+        fed3q = remoting.FederatedDevice([w.url for w in workers], ring=True,
+                                         quantize=True, timeout_s=900)
+        stack.callback(fed3q.close)
+        supported = {"fed2": fed2.fed_supported(), "fed3": fed3.fed_supported(),
+                     "fabric3": fed3.fabric_supported(),
+                     "fabric3_q8": fed3q.fabric_supported()}
+        if not all(supported.values()):
+            raise RuntimeError(f"federation phase would take the protocol "
+                               f"fallback: {supported}")
+
+        # (a) data parallel: a replica per member, the batch split 2 + 2
+        s0 = time.perf_counter()
+        replicas = [torch.utils._pytree.tree_map(dev.put, host)
+                    for dev in fed2.workers]
+        put_s = time.perf_counter() - s0
+        ffn = fed2.federated_jit(fn, in_axes=(None, 0), out_modes="concat")
+        s0 = time.perf_counter()
+        ffn(replicas, host_tokens)          # export and COMPILE on both
+        compile_s = time.perf_counter() - s0
+        # beside the federated call: one member's call of its half alone,
+        # and the local call of that half (outside the counted window)
+        lo, hi = halves[0]
+        member = ffn.on(fed2.workers[0])
+        member_s = []
+        for _ in range(FED_CALLS):
+            s0 = time.perf_counter()
+            member(replicas[0], host_tokens[lo:hi])
+            member_s.append(time.perf_counter() - s0)
+        local_half_s = []
+        for _ in range(FED_CALLS):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            fn(params, tokens[lo:hi])
+            torch.cuda.synchronize()
+            local_half_s.append(time.perf_counter() - s0)
+
+        ops.reset_launch_counts()
+        call_s = []
+        for _ in range(FED_CALLS):
+            s0 = time.perf_counter()
+            got = ffn(replicas, host_tokens)
+            call_s.append(time.perf_counter() - s0)
+        calls_launches = ops.launch_counts()["flash_attn_fwd"]
+
+        # (b) the fabric ring, raw then q8, on the same partials
+        handles = [dev.put(p) for dev, p in zip(fed3.workers, parts_host)]
+        ring = {}
+        for tag, fed in (("raw", fed3), ("q8", fed3q)):
+            s0 = time.perf_counter()
+            out = fed.all_reduce(handles, install=True, fetch_value=False)
+            wall = time.perf_counter() - s0
+            totals = [h.fetch() for h in out["handles"]]
+            for h in out["handles"]:
+                h.free()
+            errs = [(tot.float() - ring_want.float()).abs().max().item()
+                    for tot in totals]
+            # the hops run one after another, so bytes over the wall
+            # time is each leg's rate
+            ring[tag] = {"wall_s": wall, "raw_bytes": out["raw_bytes"],
+                         "wire_bytes": out["wire_bytes"],
+                         "hops": 2 * (len(workers) - 1),
+                         "leg_gb_s": out["raw_bytes"] / wall / 1e9,
+                         "equal_on_every_member": all(torch.equal(tot, ring_want)
+                                                      for tot in totals),
+                         "max_abs_err": max(errs),
+                         "client_relay_bytes": fed.fed_snapshot()["client_relay_bytes"]}
+        for h in handles:
+            h.free()
+        # the q8 ring against the raw one on member 0's path (n-1 reduce
+        # hops, then n-1 install hops): each hop's codec is off by at most
+        # half a block scale (max|block| / 254), the received value is
+        # stored as bf16 (half an ulp, at most 2^-8 of the magnitude), and
+        # a reduce hop's sum, rounded once to bf16, may land one ulp (two
+        # half ulps) from the raw ring's
+        n_hops = len(workers) - 1
+        half_ulp = ring_max * 2.0 ** -8
+        q8_bound = 2 * n_hops * ring_max / 254 + (3 * n_hops + n_hops) * half_ulp
+
+        # (c) model parallel MLP over the ring
+        mp = fed3.model_parallel_jit(stage1, stage2,
+                                     stage1_in_axes=(1, 1, 0, None))
+        mp(*mlp_args)                      # export and COMPILE
+        s0 = time.perf_counter()
+        mlp_got = mp(*mlp_args)
+        mp_s = time.perf_counter() - s0
+        launches = ops.launch_counts()
+
+        infos = [dev.info() for dev in fed3.workers]
+        charges = [_meter_row(m) for m in meters]
+        fed_snaps = {"fed2": fed2.fed_snapshot(), "fed3": fed3.fed_snapshot(),
+                     "fed3_q8": fed3q.fed_snapshot()}
+        for rep in replicas:
+            for h in torch.utils._pytree.tree_leaves(rep):
+                h.free()
+        resident_after = [w.resident_bytes for w in workers]
+
+    got_dev = got.to(DEVICE)
+    halves_equal = [torch.equal(got_dev[lo:hi], w)
+                    for (lo, hi), w in zip(halves, want_halves)]
+    bf16 = {"fed_vs_local": _rel(got_dev, want), "fed_vs_f32": _rel(got_dev, exact),
+            "full_vs_f32": _rel(full, exact)}
+    mlp_mean_rel = ((mlp_got - mlp_f32).abs().mean() / mlp_f32.abs().mean()).item()
+    row = {"nvidia_smi": smi, "dim": cfg.dim, "n_layers": cfg.n_layers,
+           "dtype": str(cfg.dtype), "workers": len(workers),
+           "supported": supported,
+           "data_parallel": {
+               "members": 2, "batch": b, "prompt": t, "split": points,
+               "replica_bytes": 2 * sum(x.numel() * x.element_size()
+                                        for x in torch.utils._pytree.tree_leaves(host)),
+               "put_s": put_s, "compile_s": compile_s,
+               "call_ms": _quantiles_ms(call_s), "calls": FED_CALLS,
+               "member_half_call_ms": _quantiles_ms(member_s),
+               "local_half_ms": _quantiles_ms(local_half_s),
+               "flash_launches": calls_launches,
+               "halves_equal_local": halves_equal,
+               "argmax_equal_local": torch.equal(got_dev.argmax(-1), want.argmax(-1)),
+               "bf16_rel": bf16},
+           "ring": {"elements": layer_numel, "bytes_per_partial":
+                    layer_numel * parts_host[0].element_size(), **ring,
+                    "q8_bound": q8_bound},
+           "model_parallel": {"split": hidden, "s": mp_s,
+                              "equal_local_emulation": torch.equal(mlp_got, mlp_emul),
+                              "mean_rel_vs_f32": mlp_mean_rel,
+                              "single_worker_mean_rel_vs_f32": (
+                                  (mlp_local - mlp_f32).abs().mean()
+                                  / mlp_f32.abs().mean()).item(),
+                              "max_abs_vs_single_worker":
+                                  (mlp_got - mlp_local).abs().max().item()},
+           "kernel_launches": launches, "charges": charges,
+           "fed_snapshot": fed_snaps,
+           "fabric": [i["fabric"] for i in infos],
+           "resident_bytes_after_free": resident_after,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "phase_s": time.perf_counter() - t_phase}
+    emit("federation", **row)
+
+    problems = []
+    if calls_launches != 2 * cfg.n_layers * FED_CALLS:
+        problems.append(f"{calls_launches} flash launches over {FED_CALLS} "
+                        f"federated calls of 2 x {cfg.n_layers} layers")
+    if not all(halves_equal):
+        problems.append(f"federated halves differ from the local forward: {halves_equal}")
+    if not row["data_parallel"]["argmax_equal_local"]:
+        problems.append("federated argmax differs from local")
+    if not bf16["fed_vs_f32"] <= 1.5 * bf16["full_vs_f32"]:
+        problems.append(f"federated logits too far from f32: {bf16}")
+    if not ring["raw"]["equal_on_every_member"]:
+        problems.append(f"raw ring total differs: max abs {ring['raw']['max_abs_err']}")
+    if not ring["q8"]["max_abs_err"] <= q8_bound:
+        problems.append(f"q8 ring error {ring['q8']['max_abs_err']} > bound {q8_bound}")
+    if ring["raw"]["client_relay_bytes"] or ring["q8"]["client_relay_bytes"] or \
+            fed_snaps["fed3"]["client_relay_bytes"]:
+        problems.append(f"collective bytes through the client: {fed_snaps}")
+    if not ring["q8"]["wire_bytes"] < ring["raw"]["wire_bytes"]:
+        problems.append(f"q8 ring moved no fewer bytes: {ring}")
+    if not row["model_parallel"]["equal_local_emulation"] or not mlp_mean_rel < 2e-2:
+        problems.append(f"model-parallel MLP: {row['model_parallel']}")
+    if any(resident_after):
+        problems.append(f"resident bytes left after FREE: {resident_after}")
+    if problems:
+        raise RuntimeError("federation phase: " + "; ".join(problems))
+    return launches
+
+
+def _engine_freeze(torch, remoting, serving, params, cfg):
+    """A worker hosting a one-request engine (one sequence, so every step
+    has the same batch shape and bf16 tokens are comparable): one
+    streamed GENERATE runs through, then the same prompt again with a
+    MIGRATE_FREEZE after FREEZE_AT tokens, FREEZE_S seconds frozen and an
+    abort.  Returns the window's token counts and both streams."""
+    gen = torch.Generator().manual_seed(41)
+    prompt = torch.randint(0, cfg.vocab_size, (64,), generator=gen).tolist()
+    out = {}
+    for tag in ("plain", "frozen"):
+        runner = serving.LlamaRunner(params, cfg, num_blocks=FREEZE_POOL[0],
+                                     block_size=FREEZE_POOL[1], device=DEVICE)
+        engine = serving.ServingEngine(runner, max_batch=1)
+        worker = remoting.RemoteVTPUWorker(engine=engine, device=DEVICE)
+        worker.start()
+        dev = remoting.RemoteDevice(worker.url, timeout_s=600)
+        orch = remoting.RemoteDevice(worker.url, timeout_s=600)
+        try:
+            got, result, failure = [], {}, []
+
+            def run():
+                try:
+                    result.update(dev.generate(prompt, FREEZE_NEW,
+                                               on_token=got.append))
+                except Exception as e:  # noqa: BLE001 - raised below
+                    failure.append(f"{type(e).__name__}: {e}")
+
+            th = threading.Thread(target=run)
+            th.start()
+            row = {}
+            if tag == "frozen":
+                deadline = time.monotonic() + 300
+                while len(got) < FREEZE_AT and th.is_alive() and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.001)
+                s0 = time.perf_counter()
+                orch.migrate_freeze()
+                row["freeze_ms"] = (time.perf_counter() - s0) * 1e3
+                made = engine.snapshot()["tokens"]
+                while len(got) < made and time.monotonic() < deadline:
+                    time.sleep(0.001)       # frames sent before the freeze
+                n0, t0 = len(got), time.perf_counter()
+                time.sleep(FREEZE_S)
+                row.update(tokens_at_freeze=n0,
+                           client_tokens_while_frozen=len(got) - n0,
+                           engine_tokens_while_frozen=engine.snapshot()["tokens"] - made,
+                           frozen_s=time.perf_counter() - t0)
+                s0 = time.perf_counter()
+                orch.migrate_commit(abort=True)
+                row["thaw_ms"] = (time.perf_counter() - s0) * 1e3
+            th.join(timeout=600)
+            if failure or "tokens" not in result:
+                raise RuntimeError(f"{tag} GENERATE failed: {failure}")
+            row["tokens"] = result["tokens"]
+            row["graphs"] = len(runner.graphs)
+            out[tag] = row
+        finally:
+            dev.close()
+            orch.close()
+            worker.stop()
+        del runner, engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_migrate(torch, ops, llama, remoting, serving, bench_train, limiter_lib,
+                  cfg, params, host, smi):
+    """Streaming live migration and SNAPSHOT / RESTORE on the card, all
+    workers metered on their own segments.  A source worker holds the
+    8-layer weights resident and the compiled last-position forward; a
+    tenant's ``step_resident`` chain (decoder layer 0 over a resident
+    hidden state) rewrites its state buffer between pre-copy rounds.
+    Two SNAPSHOT_DELTA rounds go to a target on the same card (the first
+    carries the weights, the second only what was dirtied), then
+    MIGRATE_FREEZE and MIGRATE_COMMIT; the tenant calls the same program
+    on the same buffer ids on the target, which must equal the source's
+    pre-freeze result bit for bit, the source must hold and be charged 0
+    bytes and the target be charged the state.  An aborted migration
+    must leave its source intact.  A worker hosting a one-request engine
+    is frozen mid-stream (no token may be made or arrive, the tokens must
+    equal an unfrozen stream's).  Last the target SNAPSHOTs into its
+    state root and a fresh worker RESTOREs it and executes bit-equal.
+    The flash launches of the whole phase are counted from 0."""
+    import contextlib
+    import shutil
+
+    t_phase = time.perf_counter()
+    tree_map = torch.utils._pytree.tree_map
+    leaves = torch.utils._pytree.tree_leaves
+    fn = _last_logits(llama, cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    b, t = MAIN_SHAPES[0]
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
+                           device=DEVICE)
+    x0 = params["tok_emb"][tokens.long()].cpu()
+    tokens = tokens.cpu()
+    weights_bytes = sum(x.numel() * x.element_size() for x in leaves(host))
+    state_root = WORK / "state_root"
+    shutil.rmtree(state_root, ignore_errors=True)
+    state_root.mkdir(parents=True)
+    need = int(weights_bytes * 1.1) + (2 << 30)
+    free = shutil.disk_usage(state_root).free
+    if free < need:
+        raise RuntimeError(f"migrate phase: {free / 1e9:.1f} GB free under "
+                           f"{state_root}, the snapshot needs {need / 1e9:.1f} GB")
+
+    with contextlib.ExitStack() as stack:
+        stack.callback(shutil.rmtree, state_root, True)
+        m_src, m_tgt, m_new = [stack.enter_context(bench_train.worker_segment(
+            limiter_lib, WORK / f"mig{i}", f"mig{i}", DEVICE)) for i in range(3)]
+        src = remoting.RemoteVTPUWorker(meter_client=m_src, device=DEVICE)
+        tgt = remoting.RemoteVTPUWorker(meter_client=m_tgt, device=DEVICE,
+                                        state_root=str(state_root))
+        for w in (src, tgt):
+            w.start()
+            stack.callback(w.stop)
+        ten = remoting.RemoteDevice(src.url, timeout_s=900)
+        orch = remoting.RemoteDevice(src.url, timeout_s=900)
+        stack.callback(ten.close)
+        stack.callback(orch.close)
+        s0 = time.perf_counter()
+        rparams = tree_map(ten.put, host)
+        put_s = time.perf_counter() - s0
+        # one export, shared (``remote.on``) by the tenant's wrappers on the
+        # target and on the restored worker
+        remote = ten.remote_jit(fn)
+        remote.compile_for(rparams, tokens)
+        layer_fn = ten.remote_jit(lambda layer, x: llama._layer(cfg, layer, x))
+        state = ten.put(x0)
+        layer_fn.compile_for(rparams["layers"][0], state)
+
+        ops.reset_launch_counts()
+        # the chain's steps are fire-and-forget; a FETCH on the tenant's
+        # connection waits for them and their FREEs, so each round sees
+        # a settled dirty set
+        state = layer_fn.step_resident(rparams["layers"][0], state, free=state)
+        state.fetch()
+        rounds = [orch.snapshot_delta(tgt.url)]
+        for _ in range(2):
+            state = layer_fn.step_resident(rparams["layers"][0], state, free=state)
+        want_state = state.fetch()
+        rounds.append(orch.snapshot_delta(tgt.url))
+        want = remote(rparams, tokens)          # the source's pre-freeze result
+        freeze = orch.migrate_freeze()
+        commit = orch.migrate_commit()
+        after = {"source_resident_bytes": src.resident_bytes,
+                 "source_charged_bytes": m_src.hbm_charged_bytes,
+                 "target_resident_bytes": tgt.resident_bytes,
+                 "target_charged_bytes": m_tgt.hbm_charged_bytes}
+
+        # the tenant rebinds to the target: the same ids, the same program
+        tdev = remoting.RemoteDevice(tgt.url, timeout_s=900)
+        stack.callback(tdev.close)
+        tparams = _replica(torch, remoting, tdev, rparams)
+        s0 = time.perf_counter()
+        got = remote.on(tdev)(tparams, tokens)
+        target_call_s = time.perf_counter() - s0
+        # the chain's client-minted id moved to a fresh namespace there:
+        # the tenant reads it from INFO on its source connection
+        moved = ten.info()["migration"]["moved"]
+        if moved["target_url"] != tgt.url:
+            raise RuntimeError(f"migrate phase: INFO moved names {moved['target_url']}")
+        got_state = remoting.RemoteBuffer(tdev, moved["ids"][state.buf_id],
+                                          state.shape, state.dtype).fetch()
+
+        # an aborted migration leaves its source intact
+        tgt_before = tgt.resident_bytes
+        small = ten.put(x0)
+        abort_round = orch.snapshot_delta(tgt.url)
+        orch.migrate_freeze()
+        aborted = orch.migrate_commit(abort=True)
+        deadline = time.monotonic() + 30
+        while tgt.resident_bytes != tgt_before and time.monotonic() < deadline:
+            time.sleep(0.01)
+        abort = {"round": abort_round, "reply": aborted,
+                 "source_intact": torch.equal(small.fetch(), x0),
+                 "source_resident_bytes": src.resident_bytes,
+                 "target_staged_freed": tgt.resident_bytes == tgt_before}
+        small.free()
+
+        engine = _engine_freeze(torch, remoting, serving, params, cfg)
+
+        # SNAPSHOT the target, RESTORE into a fresh worker, EXECUTE there
+        s0 = time.perf_counter()
+        snap = tdev.snapshot("snapshot")
+        write_s = time.perf_counter() - s0
+        fresh = remoting.RemoteVTPUWorker(meter_client=m_new, device=DEVICE,
+                                          state_root=str(state_root))
+        fresh.start()
+        stack.callback(fresh.stop)
+        fdev = remoting.RemoteDevice(fresh.url, timeout_s=900)
+        stack.callback(fdev.close)
+        s0 = time.perf_counter()
+        restored_meta = fdev.restore("snapshot")
+        read_s = time.perf_counter() - s0
+        restored = remote.on(fdev)(
+            _replica(torch, remoting, fdev, rparams), tokens)
+        launches = ops.launch_counts()
+        fresh_charged = m_new.hbm_charged_bytes
+
+    state_bytes = x0.numel() * x0.element_size()
+    row = {"nvidia_smi": smi, "dim": cfg.dim, "n_layers": cfg.n_layers,
+           "dtype": str(cfg.dtype), "weights_bytes": weights_bytes,
+           "state_bytes": state_bytes, "put_s": put_s,
+           "rounds": [{k: r[k] for k in ("round", "buffers", "executables",
+                                         "raw_bytes", "wire_bytes", "elapsed_ms",
+                                         "dirty_left")}
+                      | {"gb_s": r["raw_bytes"] / max(r["elapsed_ms"], 1e-6) / 1e6}
+                      for r in rounds],
+           "freeze": {k: freeze[k] for k in ("dirty_buffers", "dirty_bytes")},
+           "commit": {k: commit[k] for k in ("pause_ms", "rounds", "buffers",
+                                             "executables", "raw_bytes")},
+           "after_commit": after,
+           "target_call_s": target_call_s,
+           "migrated_equal_source": torch.equal(got, want),
+           "migrated_state_equal": torch.equal(got_state, want_state),
+           "abort": {k: v for k, v in abort.items() if k != "round"}
+           | {"round_buffers": abort["round"]["buffers"]},
+           "engine_freeze": {
+               "plain_tokens": len(engine["plain"]["tokens"]),
+               "frozen": {k: v for k, v in engine["frozen"].items() if k != "tokens"},
+               "tokens_equal_unfrozen":
+                   engine["frozen"]["tokens"] == engine["plain"]["tokens"]},
+           "snapshot": {"layers": cfg.n_layers, "buffers": snap["buffers"],
+                        "executables": snap["executables"], "bytes": snap["bytes"],
+                        "write_s": write_s, "write_gb_s": snap["bytes"] / write_s / 1e9,
+                        "read_s": read_s,
+                        "read_gb_s": restored_meta["bytes"] / read_s / 1e9,
+                        "restored_charged_bytes": fresh_charged,
+                        "restored_equal_source": torch.equal(restored, want)},
+           "kernel_launches": launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "phase_s": time.perf_counter() - t_phase}
+    emit("migrate", **row)
+
+    problems = []
+    r1, r2 = rounds
+    if r1["raw_bytes"] < weights_bytes or r2["buffers"] != 1 or \
+            r2["raw_bytes"] != state_bytes:
+        problems.append(f"pre-copy rounds: {row['rounds']}")
+    if freeze["dirty_buffers"] != 0:
+        problems.append(f"dirty at freeze: {freeze}")
+    if not row["migrated_equal_source"] or not row["migrated_state_equal"]:
+        problems.append("the migrated EXECUTE or state differs from the source's")
+    if after["source_resident_bytes"] or after["source_charged_bytes"]:
+        problems.append(f"source still holds state after commit: {after}")
+    if after["target_charged_bytes"] != weights_bytes + state_bytes or \
+            after["target_resident_bytes"] != weights_bytes + state_bytes:
+        problems.append(f"target not charged the state: {after}")
+    if not (abort["reply"].get("aborted") and abort["source_intact"]
+            and abort["target_staged_freed"]
+            and abort["source_resident_bytes"] == state_bytes):
+        problems.append(f"abort: {row['abort']}")
+    fz = engine["frozen"]
+    if fz["client_tokens_while_frozen"] or fz["engine_tokens_while_frozen"] or \
+            not fz["tokens_at_freeze"] < FREEZE_NEW or \
+            not row["engine_freeze"]["tokens_equal_unfrozen"]:
+        problems.append(f"engine freeze: {row['engine_freeze']}")
+    if not row["snapshot"]["restored_equal_source"] or \
+            fresh_charged != weights_bytes + state_bytes:
+        problems.append(f"snapshot / restore: {row['snapshot']}")
+    if launches["flash_attn_fwd"] <= 0:
+        problems.append(f"no flash launch on the migrate path: {launches}")
+    if problems:
+        raise RuntimeError("migrate phase: " + "; ".join(problems))
     return launches
 
 
@@ -1579,18 +2133,31 @@ def main() -> int:
     remote_launches = phase_remote(torch, ops, llama, remoting, estimate_flops,
                                    bench_train, limiter_lib, cfg, smi)
     torch.cuda.empty_cache()
+    params = llama.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(13),
+                               device=DEVICE)
+    host = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
+    fed_launches = phase_federation(torch, ops, llama, remoting, bench_train,
+                                    limiter_lib, cfg, params, host, smi)
+    torch.cuda.empty_cache()
+    mig_launches = phase_migrate(torch, ops, llama, remoting, serving, bench_train,
+                                 limiter_lib, cfg, params, host, smi)
+    del params, host
+    torch.cuda.empty_cache()
     phase_bench_train(bench_train, limiter_lib)
 
     kernels = [{"name": k.name, "route": k.route, "source": k.source,
                 "replaces": k.replaces,
                 "launches": serve_launches[k.name] + train_launches[k.name]
                 + engine_launches[k.name] + remote_launches[k.name]
-                + remote_serve_launches[k.name],
+                + remote_serve_launches[k.name] + fed_launches[k.name]
+                + mig_launches[k.name],
                 "launches_by_path": {"serve": serve_launches[k.name],
                                      "train": train_launches[k.name],
                                      "engine": engine_launches[k.name],
                                      "remote": remote_launches[k.name],
-                                     "remote_serve": remote_serve_launches[k.name]},
+                                     "remote_serve": remote_serve_launches[k.name],
+                                     "federation": fed_launches[k.name],
+                                     "migrate": mig_launches[k.name]},
                 **{key: rows[k.name][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "plain", "library", "pair_ms")

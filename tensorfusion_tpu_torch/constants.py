@@ -16,6 +16,7 @@ ENV_TRACE_SAMPLE = "TPF_TRACE_SAMPLE"          # head-based trace sampling
 ENV_PROF = "TPF_PROF"                          # tpfprof attribution: 0 disables
 ENV_PROF_BIN_S = "TPF_PROF_BIN_S"              # attribution bin width (s)
 ENV_PROF_BUNDLE_DIR = "TPF_PROF_BUNDLE_DIR"    # auto postmortem bundle dir
+ENV_FED_QUANT = "TPF_FED_QUANT"                # federated collective q8: 1/0
 
 #: remote dispatcher queue depths: deep enough for pipelining clients
 #: (depths of 8-32), shallow enough that queue wait stays bounded

@@ -1,8 +1,9 @@
-"""The hypervisor's metrics lines of a worker's serving engine: the
-port's copy of ``serving_engine_lines`` from
-``tensorfusion_tpu/hypervisor/metrics.py``.  The rest of that module (the
-recorder of devices, workers and processes, and its push path) comes
-with the node layer.
+"""The hypervisor's metrics lines of a worker's serving engine, a
+federation and a worker's migrations: the port's copies of
+``serving_engine_lines``, ``federation_lines`` and ``migration_lines``
+from ``tensorfusion_tpu/hypervisor/metrics.py``.  The rest of that module
+(the recorder of devices, workers and processes, and its push path)
+comes with the node layer.
 """
 
 from __future__ import annotations
@@ -80,3 +81,56 @@ def serving_engine_lines(engine, node_name: str, ts: int,
              "spec_accept_rate": t.get("spec_accept_rate", 0.0)}, ts))
     return lines
 
+
+
+def federation_lines(fed, node_name: str, ts: int,
+                     snap=None) -> List[str]:
+    """The ``tpf_fed_collective`` line of one
+    :class:`~..remoting.federation.FederatedDevice`: collective counts,
+    payload bytes raw and on the wire, bytes relayed through the client,
+    and the hidden / exposed transfer split.  Pass ``snap`` to reuse a
+    ``fed_snapshot()``."""
+    if snap is None:
+        snap = fed.fed_snapshot()
+    tags = {"node": node_name,
+            "federation": getattr(fed, "tenant", "fed0")}
+    return [encode_line(
+        "tpf_fed_collective", tags,
+        {"workers": snap["workers"],
+         "allreduce_total": snap["allreduce_total"],
+         "allgather_total": snap["allgather_total"],
+         "fabric_rings_total": snap.get("fabric_rings_total", 0),
+         "client_relay_bytes_total": snap.get("client_relay_bytes", 0),
+         "shard_execs_total": snap["shard_execs_total"],
+         "fallback_calls_total": snap["fallback_calls_total"],
+         "collective_raw_bytes_total": snap["collective_raw_bytes"],
+         "collective_wire_bytes_total": snap["collective_wire_bytes"],
+         "hidden_transfer_s_total": round(snap["hidden_s"], 6),
+         "exposed_transfer_s_total": round(snap["exposed_s"], 6),
+         "overlap_efficiency_pct": snap["overlap_efficiency_pct"]},
+        ts)]
+
+
+def migration_lines(remote_worker, node_name: str, ts: int,
+                    snap=None) -> List[str]:
+    """The ``tpf_migration`` line of one worker: pre-copy round and byte
+    totals, realized pauses, and the live session's staging depth.  Pass
+    ``snap`` to reuse a ``migration_stats()``."""
+    if snap is None:
+        snap = remote_worker.migration_stats()
+    sess = snap.get("session") or {}
+    return [encode_line(
+        "tpf_migration", {"node": node_name},
+        {"rounds_total": int(snap["rounds_total"]),
+         "delta_buffers_total": int(snap["delta_buffers_total"]),
+         "delta_raw_bytes_total": int(snap["delta_raw_bytes_total"]),
+         "delta_wire_bytes_total": int(snap["delta_wire_bytes_total"]),
+         "streaming_total": int(snap["streaming_total"]),
+         "aborted_total": int(snap["aborted_total"]),
+         "installed_total": int(snap["installed_total"]),
+         "pause_ms_last": float(snap["pause_ms_last"]),
+         "pause_ms_max": float(snap["pause_ms_max"]),
+         "frozen": int(bool(snap["frozen"])),
+         "session_round": int(sess.get("round", 0)),
+         "session_staged_buffers": int(sess.get("staged_buffers", 0))},
+        ts)]

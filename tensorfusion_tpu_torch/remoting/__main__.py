@@ -2,7 +2,7 @@
 default) over TCP for ``RemoteDevice`` clients.
 
     python -m tensorfusion_tpu_torch.remoting --port 7707 [--token SECRET] \
-        [--device cuda] [--max-resident-gb 40]
+        [--device cuda] [--max-resident-gb 40] [--state-root DIR]
 """
 
 from __future__ import annotations
@@ -24,6 +24,9 @@ def main() -> None:
     parser.add_argument("--device", default="cuda",
                         help="the device served (default cuda; cpu runs "
                              "the kernels' plain versions)")
+    parser.add_argument("--state-root", default=None,
+                        help="the only directory SNAPSHOT / RESTORE may "
+                             "use (unset refuses both)")
     parser.add_argument("--insecure", action="store_true",
                         help="serve without a token on a non-loopback "
                              "bind (the worker runs caller-supplied "
@@ -38,7 +41,8 @@ def main() -> None:
     worker = RemoteVTPUWorker(
         host=args.host, port=args.port, token=args.token,
         max_resident_bytes=int(args.max_resident_gb * (1 << 30)),
-        insecure=args.insecure or None, device=args.device)
+        insecure=args.insecure or None, device=args.device,
+        state_root=args.state_root)
     worker.start()
     print(f"tpf remote worker ready on {worker.url} ({worker.device})",
           flush=True)

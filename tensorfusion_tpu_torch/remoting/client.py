@@ -33,10 +33,19 @@ every open stream), and :meth:`RemoteDevice.ship_kv` ships a prefilled
 prompt's KV pages (KV_SHIP, protocol v6): pages of ``SHARD_PUT_MIN_BYTES``
 or more go ahead as quiet ephemeral PUTs, smaller ones inline.
 
+State and peers: the federated collectives (``allreduce_ship`` /
+``allgather_ship``, protocol v7), the peer fabric's rendezvous and ring
+legs (``fabric_open`` / ``fabric_allreduce``, v9), SNAPSHOT / RESTORE
+into the worker's state root, and the orchestrator's half of a
+streaming live migration (``snapshot_delta`` / ``migrate_freeze`` /
+``migrate_commit``, v8).  Each version-gated call raises before anything
+is sent when the connection negotiated less (the client half of the
+double gate; the worker refuses the kind as well).  Large accumulators
+go ahead as quiet ephemeral PUTs sent directly on the connection.
+
 Left out until the multi-device slice: ``ShardedRemoteBuffer``, the
-sharded layouts and the reference's background upload stream (its
-sharded uploads and the peer fabric's staged PUTs are what it
-overlaps); until the control-plane part: ``from_connection``.
+sharded layouts and the reference's background upload stream; until the
+control-plane part: ``from_connection``.
 """
 
 from __future__ import annotations
@@ -154,13 +163,18 @@ class RemoteDevice:
                  protocol_version: int = protocol.VERSION,
                  qos: Optional[str] = None,
                  tracer=None,
-                 quantize: Optional[bool] = None):
+                 quantize: Optional[bool] = None,
+                 peer_url: Optional[str] = None):
         # url: "tcp://host:port"
         if url.startswith("tcp://"):
             url = url[len("tcp://"):]
         host, _, port = url.rpartition(":")
         self.host, self.port = host or "127.0.0.1", int(port)
         self.url = f"tcp://{self.host}:{self.port}"
+        #: the address other workers dial for peer-fabric hops: ``url``
+        #: unless the client reaches the worker another way than its
+        #: peers do (a proxy, a thinner uplink)
+        self.peer_url = str(peer_url) if peer_url else self.url
         self.token = token if token is not None else \
             os.environ.get("TPF_REMOTING_TOKEN", "")
         self.timeout_s = timeout_s
@@ -606,6 +620,193 @@ class RemoteDevice:
         return self._stream_request(meta, max_tokens, send, on_token,
                                     receipt_owed=True)
 
+    # -- federated collectives (protocol v7) -----------------------------
+
+    def _stage_upload(self, buf_id: str, arr,
+                      stats: Optional[Dict[str, int]] = None) -> None:
+        """One quiet ephemeral PUT (q8-eligible), sent before the frame
+        that names ``buf_id``; the worker consumes it at first use."""
+        self._submit("PUT", {"buf_id": buf_id, "ephemeral": True,
+                             "quiet": True}, [arr], want_reply=False,
+                     stats=stats)
+
+    def allreduce_ship(self, buf_ids, acc=None,
+                       result_id: Optional[str] = None,
+                       receipt_only: bool = False,
+                       free_src: bool = False,
+                       quiet: bool = False,
+                       wait: bool = True,
+                       stats: Optional[Dict[str, int]] = None,
+                       op: str = "sum"):
+        """One worker's leg of a federated AllReduce (ALLREDUCE_SHIP,
+        v7): the worker sums the resident partials ``buf_ids`` and the
+        shipped accumulator ``acc`` (half floats in f32, cast back once),
+        then ships the total back (q8 where negotiated) and/or installs
+        it resident under ``result_id``.  An ``acc`` of
+        ``SHARD_PUT_MIN_BYTES`` or more goes ahead as a quiet ephemeral
+        PUT.  ``free_src`` retires the partials with the reduce.
+        ``wait=False`` returns the transport Future (resolve it with
+        :meth:`finish_collective`); ``quiet`` with ``receipt_only`` makes
+        an install fire-and-forget, ordered before later EXECUTEs by the
+        worker's per-connection FIFO."""
+        self._ensure_version(protocol.FED_MIN_VERSION,
+                             "ALLREDUCE_SHIP (federated collectives)")
+        meta: Dict[str, Any] = {"op": op,
+                                "buf_ids": [str(b) for b in buf_ids]}
+        if result_id is not None:
+            meta["result_id"] = str(result_id)
+        if receipt_only:
+            meta["receipt_only"] = True
+        if free_src:
+            meta["free_src"] = True
+        buffers: List = []
+        if acc is not None:
+            acc = acc.contiguous() if isinstance(acc, torch.Tensor) \
+                else np.ascontiguousarray(np.asarray(acc))
+            if _nbytes(acc) >= SHARD_PUT_MIN_BYTES:
+                aid = f"c-ar{next(self._mint)}"
+                self._stage_upload(aid, acc, stats=stats)
+                meta["acc_bufs"] = [aid]
+            else:
+                buffers = [acc]
+        if quiet and receipt_only:
+            meta["quiet"] = True
+            self._submit("ALLREDUCE_SHIP", meta, buffers,
+                         want_reply=False, stats=stats)
+            return None
+        fut = self._submit("ALLREDUCE_SHIP", meta, buffers, stats=stats)
+        return fut if not wait else self.finish_collective(fut)
+
+    def allgather_ship(self, buf_ids, axis: int = 0,
+                       free_src: bool = False,
+                       wait: bool = True,
+                       stats: Optional[Dict[str, int]] = None):
+        """One worker's leg of a federated AllGather (ALLGATHER_SHIP,
+        v7): the worker concatenates its pieces along ``axis`` and ships
+        the slice.  Same ``wait`` / ``free_src`` contract as
+        :meth:`allreduce_ship`."""
+        self._ensure_version(protocol.FED_MIN_VERSION,
+                             "ALLGATHER_SHIP (federated collectives)")
+        meta: Dict[str, Any] = {"buf_ids": [str(b) for b in buf_ids],
+                                "axis": int(axis)}
+        if free_src:
+            meta["free_src"] = True
+        fut = self._submit("ALLGATHER_SHIP", meta, [], stats=stats)
+        return fut if not wait else self.finish_collective(fut)
+
+    def finish_collective(self, fut: Future
+                          ) -> Tuple[Dict[str, Any], Optional[torch.Tensor]]:
+        """Resolve one collective leg: ``(receipt meta, payload tensor or
+        None)``.  The receipt's ``_rx_wire`` holds the reply's inbound
+        wire accounting."""
+        _, rmeta, rbufs = self._result(fut)
+        return rmeta, (rbufs[0] if rbufs else None)
+
+    def mint_buf_id(self, tag: str = "r") -> str:
+        """A fresh client-minted ``c-`` buffer id (an install target)."""
+        return f"c-f{next(self._mint)}-{tag}"
+
+    # -- peer fabric (protocol v9) ----------------------------------------
+
+    def fabric_open(self, cid: str) -> Dict[str, Any]:
+        """Rendezvous the worker into fabric collective ``cid``: it parks
+        a session so its ring neighbours' PEER_REDUCE / PEER_INSTALL hops
+        never race the leg that consumes them.  Open every member before
+        launching any leg."""
+        self._ensure_version(protocol.FABRIC_MIN_VERSION,
+                             "FABRIC_OPEN (peer fabric)")
+        _, meta, _ = self._rpc("FABRIC_OPEN", {"cid": str(cid)}, [])
+        return meta
+
+    def fabric_allreduce(self, cid: str, buf_ids, ring, index: int,
+                         result_id: str, op: str = "sum",
+                         free_src: bool = False, quant: bool = False,
+                         wait: bool = False,
+                         stats: Optional[Dict[str, int]] = None):
+        """Launch this worker's leg of a zero-relay ring AllReduce
+        (FABRIC_ALLREDUCE, v9): the worker pre-reduces ``buf_ids``, takes
+        its slot ``index`` in ``ring`` (``[{"url": ...}, ...]``), relays
+        the running sum up-ring and the total down-ring worker to worker
+        (q8 per hop with ``quant``) and installs it under ``result_id``.
+        The reply is a receipt: no collective payload crosses this
+        client.  ``wait=False`` by default, since every member's leg must
+        be in flight at once."""
+        self._ensure_version(protocol.FABRIC_MIN_VERSION,
+                             "FABRIC_ALLREDUCE (peer fabric)")
+        meta: Dict[str, Any] = {
+            "cid": str(cid),
+            "buf_ids": [str(b) for b in buf_ids],
+            "ring": [{"url": str(m.get("url", ""))} for m in ring],
+            "index": int(index),
+            "result_id": str(result_id),
+            "op": str(op)}
+        if free_src:
+            meta["free_src"] = True
+        if quant:
+            meta["quant"] = True
+        fut = self._submit("FABRIC_ALLREDUCE", meta, [], stats=stats)
+        return fut if not wait else self.finish_collective(fut)
+
+    # -- state: snapshot / restore and streaming migration -----------------
+
+    def snapshot(self, state_dir: str) -> Dict[str, Any]:
+        """Persist the worker's resident buffers and executables under
+        ``state_dir``, a path inside the worker's state root."""
+        _, meta, _ = self._rpc("SNAPSHOT", {"state_dir": state_dir}, [])
+        return meta
+
+    def restore(self, state_dir: str) -> Dict[str, Any]:
+        """Re-materialize a snapshot from ``state_dir`` (inside the
+        worker's state root); every archive passes the program check."""
+        _, meta, _ = self._rpc("RESTORE", {"state_dir": state_dir}, [])
+        return meta
+
+    def snapshot_delta(self, target_url: str,
+                       target_token: Optional[str] = None,
+                       final: bool = False,
+                       quant: bool = False) -> Dict[str, Any]:
+        """One pre-copy round of a streaming live migration: the worker
+        ships every resident buffer dirtied since its previous round (and
+        any executable not yet shipped) straight to ``target_url`` as
+        staged quiet PUTs, worker to worker, and answers with the round's
+        receipt (``buffers``, ``raw_bytes``, ``wire_bytes``,
+        ``elapsed_ms``, ``dirty_left``, ``bandwidth_bps``).  The round
+        runs as the worker's lowest-weight ``migration`` tenant.  Exact
+        by default; ``quant=True`` opts the session into lossy q8."""
+        self._ensure_version(protocol.MIGRATE_MIN_VERSION,
+                             "SNAPSHOT_DELTA (streaming migration)")
+        meta: Dict[str, Any] = {"target_url": str(target_url)}
+        if target_token is not None:
+            meta["target_token"] = str(target_token)
+        if final:
+            meta["final"] = True
+        if quant:
+            meta["quant"] = True
+        _, rmeta, _ = self._rpc("SNAPSHOT_DELTA", meta, [])
+        return rmeta
+
+    def migrate_freeze(self) -> Dict[str, Any]:
+        """Freeze the worker for the final round: mutating requests wait
+        at its connection handlers, its dispatcher drains and a hosted
+        engine pauses between steps.  The reply reports the
+        ``dirty_buffers`` / ``dirty_bytes`` still to ship."""
+        self._ensure_version(protocol.MIGRATE_MIN_VERSION,
+                             "MIGRATE_FREEZE (streaming migration)")
+        _, rmeta, _ = self._rpc("MIGRATE_FREEZE", {}, [])
+        return rmeta
+
+    def migrate_commit(self, abort: bool = False) -> Dict[str, Any]:
+        """End the migration: ship the final frozen delta, publish the
+        staged state on the target, drop it here and thaw, returning
+        ``pause_ms``, ``rounds`` and the byte totals.  ``abort=True``
+        frees the staged state on the target and thaws with the state
+        kept here."""
+        self._ensure_version(protocol.MIGRATE_MIN_VERSION,
+                             "MIGRATE_COMMIT (streaming migration)")
+        meta: Dict[str, Any] = {"abort": True} if abort else {}
+        _, rmeta, _ = self._rpc("MIGRATE_COMMIT", meta, [])
+        return rmeta
+
     # ------------------------------------------------------------------
 
     def remote_jit(self, fn: Callable, microbatch: bool = False) -> Callable:
@@ -614,12 +815,22 @@ class RemoteDevice:
         argument signature.  The wrapper also exposes ``.submit(*args)
         -> Future`` for pipelined calls, ``.compile_for(*args)``,
         ``.step_resident(*args)`` (results stay on the worker, handles
-        come back at once) and ``.upload_arg(i, array)``.
+        come back at once), ``.upload_arg(i, array)`` and ``.on(device)``
+        (the same function on another RemoteDevice, sharing this
+        wrapper's exports: a federation's members, or a tenant rebinding
+        to another worker after a migration, export each signature once
+        and only COMPILE it on each worker).
 
         ``microbatch=True`` declares the executable fusable: the worker
         may run compatible concurrent requests (same executable, from
         this or other connections) in one dispatch, each with its own
         inputs and outputs."""
+        return self._remote_jit(fn, microbatch, {})
+
+    def _remote_jit(self, fn: Callable, microbatch: bool,
+                    exports: Dict[Any, tuple]) -> Callable:
+        """:meth:`remote_jit` with ``exports`` (signature -> exported
+        program) shared by every wrapper that ``.on`` derives."""
         #: sig -> (exe_id, out_tree, out_sigs)
         exe_ids: Dict[Any, Tuple[str, Any, list]] = {}
         device = self
@@ -630,25 +841,32 @@ class RemoteDevice:
             arr = np.asarray(l)
             return (arr.shape, arr.dtype.name)
 
+        def export(sig, treedef) -> tuple:
+            specs = [(shape, protocol.TORCH_DTYPES[dt])
+                     for shape, dt in sig[0]]
+            blob, out_tree, out_sigs = program.export_program(
+                fn, specs, treedef)
+            try:
+                metas = [torch.empty(shape, dtype=dt, device="meta")
+                         for shape, dt in specs]
+                flops = estimate_flops(
+                    fn, pytree.tree_unflatten(metas, treedef), {})
+                mflops = max(int(flops / 1e6), 1)
+            except Exception:  # noqa: BLE001
+                log.debug("FLOP estimate failed; flat-rate QoS "
+                          "charge for this executable", exc_info=True)
+                mflops = 1
+            return blob, out_tree, out_sigs, mflops
+
         def prepare(args):
             leaves, treedef = pytree.tree_flatten(args)
             sig = (tuple(leaf_sig(l) for l in leaves), treedef)
             entry = exe_ids.get(sig)
             if entry is None:
-                specs = [(shape, protocol.TORCH_DTYPES[dt])
-                         for shape, dt in sig[0]]
-                blob, out_tree, out_sigs = program.export_program(
-                    fn, specs, treedef)
-                try:
-                    metas = [torch.empty(shape, dtype=dt, device="meta")
-                             for shape, dt in specs]
-                    flops = estimate_flops(
-                        fn, pytree.tree_unflatten(metas, treedef), {})
-                    mflops = max(int(flops / 1e6), 1)
-                except Exception:  # noqa: BLE001
-                    log.debug("FLOP estimate failed; flat-rate QoS "
-                              "charge for this executable", exc_info=True)
-                    mflops = 1
+                exported = exports.get(sig)
+                if exported is None:
+                    exported = exports[sig] = export(sig, treedef)
+                blob, out_tree, out_sigs, mflops = exported
                 cmeta: Dict[str, Any] = {"mflops_hint": mflops}
                 if microbatch:
                     cmeta["microbatch"] = True
@@ -870,4 +1088,5 @@ class RemoteDevice:
         remote.compile_for = compile_for
         remote.upload_arg = upload_arg
         remote.step_resident = step_resident
+        remote.on = lambda other: other._remote_jit(fn, microbatch, exports)
         return remote

@@ -1,23 +1,28 @@
-"""Worker-to-worker peer links: the link-leasing half of
+"""Worker-to-worker peer links: the port's copy of
 ``tensorfusion_tpu/remoting/fabric.py``.
 
 A :class:`PeerLink` is one pooled :class:`~.client.RemoteDevice` session
-framed by the same wire protocol the client speaks.  KV_SHIP from a
-prefill tier (``serving/disagg.py:RemoteKVShipper``) rides one, and so
-gets the adaptive encodings, the target's WFQ tenancy and HELLO version
-negotiation.  Links carry raw (exact) buffers: KV pages are never q8.
+framed by the same wire protocol the client speaks.  Every byte path
+between two workers rides one: KV_SHIP from a prefill tier
+(``serving/disagg.py:RemoteKVShipper``), the pre-copy rounds of a
+streaming migration (staged quiet PUTs, :meth:`PeerLink.stage`), and the
+reduce and install hops of the zero-relay fabric ring
+(:meth:`PeerLink.ship_reduce` / :meth:`PeerLink.ship_install`, protocol
+v9).  So each gets the adaptive encodings (q8 per leg when the link was
+leased with ``quantize``), the target's WFQ tenancy and HELLO version
+negotiation, which keeps a v9 hop from ever reaching a pre-v9 peer.
 
-Links are pooled per ``(target_url, token)`` with an idle TTL
-(:data:`PEER_LINK_IDLE_TTL_S`) instead of dialed per session.  HELLO_OK's
-``worker_uid`` (fresh per worker process) is the staleness oracle: a
-pooled link whose target restarted reports a changed uid when it is
-re-verified on lease, and is replaced by a fresh dial, so pooled
+Staged PUTs are sent directly on the link's connection, in order; the
+reference's background upload stream gave no overlap on the card and is
+not ported.  :meth:`PeerLink.drain` is one round trip that returns once
+the target has read every frame sent before it.
+
+Links are pooled per ``(target_url, token, quantize)`` with an idle TTL
+(:data:`PEER_LINK_IDLE_TTL_S`) instead of dialed per session.
+HELLO_OK's ``worker_uid`` (fresh per worker process) is the staleness
+oracle: a pooled link whose target restarted reports a changed uid when
+it is re-verified on lease, and is replaced by a fresh dial, so pooled
 transport never implies that staged state survived the peer's restart.
-
-The framed collective hops (``ship_reduce`` / ``ship_install``), the
-staged PUTs they send ahead (``PeerLink.stage`` / ``drain`` and the
-reference's background upload stream) and the worker's FABRIC_* and
-PEER_* handlers come with the state-and-peers part of remote execution.
 """
 
 from __future__ import annotations
@@ -26,7 +31,9 @@ import logging
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
+from .. import constants
 from ..clock import Clock, default_clock
+from . import protocol
 from .client import RemoteDevice
 
 log = logging.getLogger("tpf_torch.remoting.fabric")
@@ -43,19 +50,71 @@ PEER_LINK_VERIFY_FRESH_S = 1.0
 
 class PeerLink:
     """One worker-to-worker session over a :class:`RemoteDevice`.  The
-    link carries bytes; state its holders mint on the target is theirs.  ``generation``
-    counts the re-dials of the same key (target restarts), so a holder
-    that cached target-side state can tell it went stale."""
+    link carries bytes; state its holders mint on the target is theirs.
+    ``generation`` counts the re-dials of the same key (target
+    restarts), so a holder that cached target-side state can tell it
+    went stale.  ``raw_bytes`` / ``wire_bytes`` count what its hops
+    moved over its lifetime."""
 
     def __init__(self, url: str, token: str = "",
+                 qos: str = constants.DEFAULT_QOS,
+                 quantize: bool = False,
                  clock: Optional[Clock] = None) -> None:
         self.url = url
         self.token = token
-        self.device = RemoteDevice(url, token=token, quantize=False)
+        self.quantize = bool(quantize)
+        self.device = RemoteDevice(url, token=token, qos=qos,
+                                   quantize=self.quantize)
         self.worker_uid: Optional[str] = None
         self.generation = 0
+        self.raw_bytes = 0
+        self.wire_bytes = 0
         self._clock = clock or default_clock()
         self.last_used_m = self._clock.monotonic()
+
+    # -- staged uploads (the migration path) ---------------------------
+
+    def stage(self, buf_id: str, host,
+              stats: Optional[Dict[str, int]] = None) -> None:
+        """Send one quiet client-minted PUT (q8-eligible when the link
+        negotiated it).  Not ``ephemeral``: staged state survives until
+        its owner binds or frees it."""
+        self.device._submit("PUT", {"buf_id": buf_id, "quiet": True},
+                            [host], want_reply=False, stats=stats)
+
+    def drain(self) -> None:
+        """Ordering barrier: returns once the target has read every
+        staged PUT sent before it (an empty FREE, which the target
+        answers in order on this connection)."""
+        self.device._rpc("FREE", {"buf_ids": []}, [])
+
+    # -- framed peer hops (the fabric ring) ------------------------------
+
+    def _hop(self, kind: str, meta: Dict[str, Any],
+             payload) -> Dict[str, Any]:
+        self.device._ensure_version(protocol.FABRIC_MIN_VERSION,
+                                    f"{kind} (peer fabric)")
+        st: Dict[str, int] = {}
+        fut = self.device._submit(kind, meta, [payload], stats=st)
+        _, rmeta, _ = self.device._result(fut)
+        self.raw_bytes += int(st.get("raw_bytes", 0))
+        self.wire_bytes += int(st.get("wire_bytes", 0))
+        self.touch()
+        return rmeta
+
+    def ship_reduce(self, cid: str, step: int, payload,
+                    op: str = "sum") -> Dict[str, Any]:
+        """One PEER_REDUCE hop: ship the running sum to the next ring
+        member and wait for its ack (the ring's backpressure)."""
+        return self._hop("PEER_REDUCE", {"cid": str(cid), "step": int(step),
+                                         "op": str(op)}, payload)
+
+    def ship_install(self, cid: str, step: int, payload) -> Dict[str, Any]:
+        """One PEER_INSTALL hop: fan the reduced total down-ring."""
+        return self._hop("PEER_INSTALL", {"cid": str(cid),
+                                          "step": int(step)}, payload)
+
+    # -- lifecycle --------------------------------------------------------
 
     def verify(self) -> bool:
         """Re-verify a pooled link on lease: dial (or reconnect) and
@@ -83,7 +142,8 @@ class PeerLink:
 
 
 class PeerLinkPool:
-    """Idle :class:`PeerLink` sessions keyed by ``(target_url, token)``.
+    """Idle :class:`PeerLink` sessions keyed by ``(target_url, token,
+    quantize)``.
     ``lease()`` pops a pooled link for the key (re-verifying the
     target's ``worker_uid`` unless the link was used within
     :data:`PEER_LINK_VERIFY_FRESH_S`, and re-dialing when the target
@@ -94,7 +154,7 @@ class PeerLinkPool:
     def __init__(self, clock: Optional[Clock] = None) -> None:
         self._clock = clock or default_clock()
         # guarded by: _lock
-        self._idle: Dict[Tuple[str, str], List[PeerLink]] = {}
+        self._idle: Dict[Tuple[str, str, bool], List[PeerLink]] = {}
         self._lock = threading.Lock()
         # guarded by: _lock
         self._closed = False
@@ -102,8 +162,10 @@ class PeerLinkPool:
         self.stats = {"leases": 0, "hits": 0, "dials": 0,
                       "redials": 0, "expired": 0}
 
-    def lease(self, url: str, token: str = "") -> PeerLink:
-        key = (str(url), str(token))
+    def lease(self, url: str, token: str = "",
+              qos: str = constants.DEFAULT_QOS,
+              quantize: bool = False) -> PeerLink:
+        key = (str(url), str(token), bool(quantize))
         pooled: Optional[PeerLink] = None
         with self._lock:
             self.stats["leases"] += 1
@@ -126,12 +188,14 @@ class PeerLinkPool:
             pooled.close()
             with self._lock:
                 self.stats["redials"] += 1
-            link = PeerLink(url, token=token, clock=self._clock)
+            link = PeerLink(url, token=token, qos=qos, quantize=quantize,
+                            clock=self._clock)
             link.generation = gen
             return link
         with self._lock:
             self.stats["dials"] += 1
-        return PeerLink(url, token=token, clock=self._clock)
+        return PeerLink(url, token=token, qos=qos, quantize=quantize,
+                        clock=self._clock)
 
     def release(self, link: PeerLink) -> None:
         """Park a link for reuse and sweep expired idle ones; after
@@ -141,7 +205,7 @@ class PeerLinkPool:
             # bind the uid the link spoke to, so the next lease's
             # verify() can see a restart in between
             link.worker_uid = link.device.worker_uid
-        key = (link.url, link.token)
+        key = (link.url, link.token, link.quantize)
         with self._lock:
             if self._closed:
                 closing = [link]

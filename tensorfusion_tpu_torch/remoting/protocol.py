@@ -22,9 +22,9 @@ client-minted id and ephemeral fields; v4 deadlines and structured
 ``BUSY`` / ``DEADLINE_EXCEEDED`` errors; v5 ``trace`` contexts and
 server ``trace_spans``; v6 q8; v7-v9 the federated, migration and
 peer-fabric kinds.  The registries below list every kind of the
-reference; the port's worker serves HELLO, INFO, COMPILE, PUT, FREE,
-FETCH, EXECUTE, GENERATE and KV_SHIP (v6) and answers the rest with
-``unknown kind``.  No pickle rides the wire.
+reference; the port's worker serves all of them but COMPILE_MLIR (the
+raw-StableHLO path of the reference's PJRT plugin), which it answers
+with ``unknown kind``.  No pickle rides the wire.
 
 bf16 needs no ``ml_dtypes``: the port frames bf16 torch tensors as their
 2-byte payload under ``dtype: "bfloat16"``, exactly as the reference
@@ -59,6 +59,20 @@ Q8_MIN_VERSION = 6
 #: lowest wire version that may carry KV_SHIP (the client refuses to
 #: send it below, the worker to honor it below)
 KV_SHIP_MIN_VERSION = 6
+#: lowest wire version that may carry the federated collectives
+#: (ALLREDUCE_SHIP / ALLGATHER_SHIP); gated at both ends like KV_SHIP
+FED_MIN_VERSION = 7
+#: lowest wire version that may carry streaming live migration
+#: (SNAPSHOT_DELTA / MIGRATE_FREEZE / MIGRATE_COMMIT)
+MIGRATE_MIN_VERSION = 8
+#: lowest wire version that may carry the peer fabric (FABRIC_OPEN /
+#: FABRIC_ALLREDUCE and the worker-to-worker PEER_REDUCE / PEER_INSTALL
+#: hops): the client refuses to send the FABRIC kinds below it and the
+#: worker refuses every v9 kind from a connection below it
+FABRIC_MIN_VERSION = 9
+#: ceiling on a FABRIC_ALLREDUCE ``ring`` member list: the ring and its
+#: ``index`` arrive off the wire, so both are bounded before use
+MAX_FABRIC_RING = 64
 
 # -- opcode / reply / error-code registry ---------------------------------
 

@@ -1,6 +1,6 @@
 """Remote worker of the port: serves one device over TCP.
 
-The single-device subset of ``tensorfusion_tpu/remoting/worker.py``.  It
+The single-device half of ``tensorfusion_tpu/remoting/worker.py``.  It
 runs on the GPU host (``python -m tensorfusion_tpu_torch.remoting``),
 accepts HELLO / INFO / COMPILE / PUT / FREE / FETCH / EXECUTE, and keeps
 an executable cache keyed by content hash so repeated clients share one
@@ -17,9 +17,40 @@ as ephemeral PUTs, ingested into the engine's pool with prefix dedup,
 then streamed like GENERATE).  The engine's pool is charged against the
 resident budget and the meter at :meth:`start` and released at
 :meth:`stop`; compute is charged per EXECUTE only, never per engine
-step.  Every other kind, including those of later parts of the port
-(SNAPSHOT, RESTORE, migration, the collectives and the peer fabric, and
-COMPILE_MLIR), gets the reference's ``unknown kind`` ERROR.
+step.
+
+State and peers, each kind refused below its wire version (the worker
+half of the double gate):
+
+- **federated collectives** (v7): ALLREDUCE_SHIP / ALLGATHER_SHIP ride
+  the dispatcher as work items whose heavy half (take the partials,
+  reduce, reply) is the deferred flush; half-float terms are summed in
+  f32 on the device and cast back once, integers and bools exactly.
+- **peer fabric** (v9): FABRIC_OPEN parks a ring session; each member's
+  FABRIC_ALLREDUCE leg adds its partials to the running sum its
+  predecessor deposited (PEER_REDUCE), relays it up-ring over a pooled
+  :class:`~.fabric.PeerLink`, fans the total back down-ring
+  (PEER_INSTALL) and installs it resident, so the client relays no
+  payload.  A hop waits at most :data:`FABRIC_HOP_TIMEOUT_S`.
+- **SNAPSHOT / RESTORE**: resident buffers (raw little-endian files, the
+  reference's layout) and executable archives persist to a directory
+  that must resolve inside the worker's ``state_root``.
+- **streaming live migration** (v8): every install of a resident buffer
+  bumps its write generation; SNAPSHOT_DELTA ships what changed since
+  the previous round to a target worker as staged PUTs (a low-QoS
+  ``migration`` tenant's work item); MIGRATE_FREEZE holds mutating kinds
+  at the handlers, drains the dispatcher and pauses a hosted engine
+  between steps; MIGRATE_COMMIT ships the final delta and publishes it
+  on the target (or, with ``abort``, frees it there and thaws). The
+  target gives the source's client-minted ids a fresh namespace and
+  never replaces a resident buffer; INFO ``migration.moved`` tells each
+  source connection its ids there. Like the reference's, these
+  orchestrator kinds trust any caller that holds the worker's token.
+
+Archives are code, not data: every archive loaded outside COMPILE (at
+RESTORE, or shipped by a migrating peer) must hash to its id and pass
+:func:`~.program.check_archive` first.  COMPILE_MLIR (the reference's
+raw-StableHLO path) gets the reference's ``unknown kind`` ERROR.
 
 As in the reference:
 
@@ -68,14 +99,18 @@ from __future__ import annotations
 
 import hashlib
 import hmac
+import itertools
+import json
 import logging
 import os
+import re
 import socketserver
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .. import constants
@@ -85,6 +120,7 @@ from ..profiling.recorder import FlightRecorder
 from ..tracing.core import Tracer
 from . import program, protocol
 from .dispatch import BusyError, DeviceDispatcher, WorkItem, qos_weight
+from .fabric import PeerLinkPool
 from .protocol import recv_message, send_message
 
 log = logging.getLogger("tpf_torch.remoting.worker")
@@ -93,7 +129,28 @@ log = logging.getLogger("tpf_torch.remoting.worker")
 #: mutations) and therefore wait for the connection's queued EXECUTEs
 #: to finish before running — per-connection ordering across the shared
 #: dispatch queue
-_BARRIER_KINDS = ("FETCH", "FREE")
+_BARRIER_KINDS = ("FETCH", "FREE", "SNAPSHOT", "RESTORE")
+
+#: request kinds that mutate resident state (or generate) and so wait at
+#: the connection handler while a MIGRATE_FREEZE holds the worker dark
+_MUTATING_KINDS = ("EXECUTE", "GENERATE", "KV_SHIP", "ALLREDUCE_SHIP",
+                   "ALLGATHER_SHIP", "FABRIC_ALLREDUCE", "PUT", "FREE")
+
+#: how long a frozen worker holds mutating requests: a dead orchestrator
+#: must not wedge tenant connections for ever
+MIGRATE_FREEZE_MAX_S = 30.0
+
+#: how long one fabric ring member waits for its peer's deposit: a
+#: wedged ring aborts (freeing the dispatcher thread) strictly before a
+#: freeze's quiesce gives up
+FABRIC_HOP_TIMEOUT_S = 20.0
+
+#: an executable id: the first 32 hex digits of its archive's sha256
+_EXE_ID = re.compile(r"[0-9a-f]{32}")
+
+
+def _exe_id(blob: bytes) -> str:
+    return hashlib.sha256(blob).hexdigest()[:32]
 
 
 def _leaves(out) -> list:
@@ -105,6 +162,96 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     if a.type != b.type:
         return False
     return a.type != "cuda" or (a.index or 0) == (b.index or 0)
+
+
+class _MigrationSession:
+    """Source side of one streaming pre-copy: a pooled link to the
+    target (leased as the lowest QoS class), the real-id -> staged-id
+    manifest accumulated over rounds, and the write generation fully
+    shipped so far."""
+
+    def __init__(self, pool: PeerLinkPool, target_url: str, token: str = "",
+                 quantize: bool = False):
+        self.target_url = target_url
+        self._pool = pool
+        self.link = pool.lease(target_url, token=token,
+                               qos=constants.QOS_LOW, quantize=quantize)
+        self.device = self.link.device
+        #: real buf_id -> staged c- id (the latest round's copy)
+        self.staged: Dict[str, str] = {}
+        #: exe_id -> staged c- id carrying the archive
+        self.staged_exes: Dict[str, str] = {}
+        #: staged ids superseded by re-dirtied buffers; freed at commit
+        self.drops: List[str] = []
+        self.round = 0
+        #: write generation fully shipped (dirty = gen > shipped_gen)
+        self.shipped_gen = 0
+        self.raw_bytes = 0
+        self.wire_bytes = 0
+        #: set by MIGRATE_FREEZE: the start of the tenant-dark window
+        self.freeze_m: Optional[float] = None
+        #: "live" or "frozen" while the session exists; "committed" or
+        #: "aborted" as MIGRATE_COMMIT clears it
+        self.state = "live"
+        self._mint = itertools.count(1)
+
+    def mint(self, tag: str) -> str:
+        return f"c-mig{next(self._mint)}-{tag}"
+
+    def close(self) -> None:
+        """Give the link back to the pool for the next session or ring."""
+        try:
+            self._pool.release(self.link)
+        except Exception:  # noqa: BLE001 - teardown best effort
+            log.debug("migration session close failed", exc_info=True)
+
+
+class _FabricCollective:
+    """One open peer-fabric collective: made by FABRIC_OPEN, consumed by
+    this worker's FABRIC_ALLREDUCE flush.  Peer deposits arrive on other
+    connections' handler threads and park here; the flush waits for
+    them, bounded by :data:`FABRIC_HOP_TIMEOUT_S`."""
+
+    def __init__(self, cid: str):
+        self.cid = cid
+        #: "open" or "reducing" while the session exists; "done" or
+        #: "aborted" as its flush clears it
+        self.state = "open"
+        self._cv = threading.Condition()
+        #: step -> running sum the up-ring PEER_REDUCE deposited
+        self._reduces: Dict[int, torch.Tensor] = {}
+        #: step -> total the down-ring PEER_INSTALL deposited
+        self._installs: Dict[int, torch.Tensor] = {}
+        self._error: Optional[str] = None
+
+    def deposit(self, table: str, step: int, payload) -> None:
+        with self._cv:
+            tbl = self._reduces if table == "reduce" else self._installs
+            tbl[step] = payload
+            self._cv.notify_all()
+
+    def take(self, table: str, step: int, timeout: float):
+        """Wait for the peer's ``step`` deposit (or the hop timeout, or
+        the session's abort)."""
+        deadline = time.monotonic() + timeout
+        tbl = self._reduces if table == "reduce" else self._installs
+        with self._cv:
+            while step not in tbl:
+                if self._error is not None:
+                    raise RuntimeError(self._error)
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(
+                        f"fabric {table} hop {step} timed out after "
+                        f"{timeout:.0f}s (cid={self.cid})")
+                self._cv.wait(timeout=min(remaining, 0.5))
+            return tbl.pop(step)
+
+    def abort(self, error: str) -> None:
+        """Wake every waiter with the failure."""
+        with self._cv:
+            self._error = error
+            self._cv.notify_all()
 
 
 class RemoteVTPUWorker:
@@ -123,7 +270,8 @@ class RemoteVTPUWorker:
                  engine=None,
                  profiler: Optional[Profiler] = None,
                  recorder: Optional[FlightRecorder] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 state_root: Optional[str] = None):
         #: the one device this worker owns; "cuda" without a card raises
         self.device = resolve_device(device)
         runner_dev = getattr(getattr(engine, "runner", None), "device", None)
@@ -184,9 +332,58 @@ class RemoteVTPUWorker:
         self._exe_cache: Dict[str, object] = {}
         # guarded by: _lock
         self._exe_costs: Dict[str, int] = {}
+        #: exe_id -> archive bytes (SNAPSHOT and migration ship them)
+        # guarded by: _lock
+        self._exe_blobs: Dict[str, bytes] = {}
         #: exe_ids whose client opted into micro-batching at COMPILE
         # guarded by: _lock
         self._exe_microbatch: set = set()
+        #: SNAPSHOT / RESTORE read and write only below this directory
+        #: (``state_dir`` comes off the wire); None refuses both
+        self.state_root = os.path.realpath(state_root) if state_root \
+            else None
+        #: write generation per resident buffer, bumped on every install
+        #: (PUT, keep_results, collective install, RESTORE, migration),
+        #: so a SNAPSHOT_DELTA round ships only what changed
+        # guarded by: _lock
+        self._buf_gen: Dict[str, int] = {}
+        # guarded by: _lock
+        self._write_gen = 0
+        #: the one live pre-copy session (None between migrations)
+        # guarded by: _lock
+        self._mig_session: Optional[_MigrationSession] = None
+        #: the one open fabric collective (None between rings); a new
+        #: FABRIC_OPEN replaces and aborts it
+        # guarded by: _lock
+        self._fab_session: Optional[_FabricCollective] = None
+        #: pooled worker-to-worker links: migration sessions and ring
+        #: hops lease from here
+        self._peer_pool = PeerLinkPool()
+        # guarded by: _lock
+        self._fab_stats: Dict[str, float] = {
+            "rings_total": 0, "reduce_hops_total": 0,
+            "install_hops_total": 0, "aborted_total": 0,
+            "peer_raw_bytes_total": 0, "peer_wire_bytes_total": 0}
+        #: set = thawed; MIGRATE_FREEZE clears it and mutating kinds wait
+        #: at the handler until commit or abort (at most
+        #: MIGRATE_FREEZE_MAX_S)
+        self._mig_thaw = threading.Event()
+        self._mig_thaw.set()
+        #: the dispatch tenant SNAPSHOT_DELTA rounds queue as (lowest
+        #: weight; made at the first round)
+        self._mig_tenant = None
+        # guarded by: _lock
+        self._mig_stats: Dict[str, float] = {
+            "rounds_total": 0, "delta_buffers_total": 0,
+            "delta_raw_bytes_total": 0, "delta_wire_bytes_total": 0,
+            "streaming_total": 0, "aborted_total": 0,
+            "installed_total": 0, "pause_ms_last": 0.0,
+            "pause_ms_max": 0.0}
+        #: the last committed migration: its target and every buffer id
+        #: shipped there -> its id on the target (INFO ``migration
+        #: .moved`` tells each connection its own)
+        # guarded by: _lock
+        self._mig_moved: Optional[Dict[str, object]] = None
         #: buf_id -> device tensor (or the Future of an async PUT)
         # guarded by: _lock
         self._buffers: Dict[str, object] = {}
@@ -325,7 +522,7 @@ class RemoteVTPUWorker:
                         if key in meta:
                             meta[key] = xid(meta[key])
                     for key in ("buf_ids", "arg_refs", "result_ids",
-                                "kv_bufs"):
+                                "kv_bufs", "acc_bufs"):
                         if meta.get(key) is not None:
                             meta[key] = [xid(v) for v in meta[key]]
                     meta["_conn_ns"] = conn_ns
@@ -359,6 +556,13 @@ class RemoteVTPUWorker:
                             break
                         kind, meta, buffers = item
                         seq = meta.get("seq")
+                        if kind in _MUTATING_KINDS and \
+                                not outer._mig_thaw.is_set():
+                            # MIGRATE_FREEZE: mutations wait here until
+                            # commit or abort thaws the worker; reads
+                            # (INFO, FETCH, COMPILE) keep flowing
+                            outer._mig_thaw.wait(
+                                timeout=MIGRATE_FREEZE_MAX_S)
 
                         def reply(rkind, rmeta, rbufs, compress=False,
                                   _seq=seq):
@@ -415,6 +619,44 @@ class RemoteVTPUWorker:
                                 outer._handle_kv_ship(
                                     reply, remap_ids(meta), buffers,
                                     tenant)
+                                continue
+                            if kind in ("ALLREDUCE_SHIP",
+                                        "ALLGATHER_SHIP"):
+                                # v7: dispatcher items with a deferred
+                                # flush, ordered by the connection's FIFO
+                                outer._enqueue_collective(
+                                    reply, kind, remap_ids(meta),
+                                    buffers, tenant)
+                                continue
+                            if kind == "SNAPSHOT_DELTA":
+                                # v8: one pre-copy round, queued as the
+                                # low-QoS migration tenant
+                                outer._enqueue_snapshot_delta(
+                                    reply, remap_ids(meta))
+                                continue
+                            if kind == "MIGRATE_FREEZE":
+                                outer._handle_migrate_freeze(
+                                    reply, remap_ids(meta))
+                                continue
+                            if kind == "MIGRATE_COMMIT":
+                                outer._handle_migrate_commit(
+                                    reply, remap_ids(meta))
+                                continue
+                            if kind == "FABRIC_OPEN":
+                                # v9 rendezvous, answered at once so every
+                                # member is open before any leg flies
+                                outer._handle_fabric_open(
+                                    reply, remap_ids(meta))
+                                continue
+                            if kind == "FABRIC_ALLREDUCE":
+                                outer._enqueue_fabric_allreduce(
+                                    reply, remap_ids(meta), buffers,
+                                    tenant)
+                                continue
+                            if kind in ("PEER_REDUCE", "PEER_INSTALL"):
+                                # a ring neighbour's hop: deposit and ack
+                                outer._handle_peer_hop(
+                                    reply, kind, remap_ids(meta), buffers)
                                 continue
                             if kind in _BARRIER_KINDS:
                                 outer.dispatcher.barrier(tenant)
@@ -501,6 +743,17 @@ class RemoteVTPUWorker:
                  self.dispatcher.mode)
 
     def stop(self) -> None:
+        # thaw first: handlers parked behind a freeze must see the
+        # shutdown instead of waiting out their timeout
+        self._mig_thaw.set()
+        with self._lock:
+            sess, self._mig_session = self._mig_session, None
+            fab, self._fab_session = self._fab_session, None
+        if sess is not None:
+            sess.close()
+        if fab is not None:
+            fab.abort("worker stopping")
+        self._peer_pool.close()
         self._server.shutdown()
         self._server.server_close()
         self.dispatcher.stop()
@@ -535,6 +788,20 @@ class RemoteVTPUWorker:
             self.meter_client.charge_hbm(nbytes)
         self.resident_bytes += nbytes
         return None
+
+    def _touch_buf(self, buf_id: str) -> None:   # holds _lock
+        """Bump ``buf_id``'s write generation: every install or
+        overwrite of a resident buffer lands here."""
+        self._write_gen += 1
+        self._buf_gen[buf_id] = self._write_gen
+
+    def _pop_buffer(self, buf_id: str):   # holds _lock
+        """Take ``buf_id`` out of the table with its bookkeeping; the
+        caller releases its bytes."""
+        self._copy_durs.pop(buf_id, None)
+        self._ephemeral.discard(buf_id)
+        self._buf_gen.pop(buf_id, None)
+        return self._buffers.pop(buf_id, None)
 
     @staticmethod
     def _leaf_nbytes(arr: torch.Tensor) -> int:
@@ -589,8 +856,7 @@ class RemoteVTPUWorker:
         arr = self._resolve(arr)
         if ephemeral:
             with self._lock:
-                if self._buffers.pop(buf_id, None) is not None:
-                    self._ephemeral.discard(buf_id)
+                if self._pop_buffer(buf_id) is not None:
                     self._release_resident(arr)
         return arr
 
@@ -907,10 +1173,930 @@ class RemoteVTPUWorker:
                 st["inflight"] += started
                 st["high_water"] = max(st["high_water"], st["inflight"])
 
+    # -- version gates and deferred work items --------------------------
+
+    @staticmethod
+    def _version_gate(reply, meta, kind: str, need: int) -> bool:
+        """Worker half of the double gate: the client refuses to send
+        ``kind`` below ``need``; a frame smuggled from a connection that
+        negotiated less dies here."""
+        if meta.get("_wire_version", 2) < need:
+            reply("ERROR", {"error": f"{kind} needs protocol >= {need} "
+                                     f"(negotiate v{need} at HELLO)"}, [])
+            return False
+        return True
+
+    def _enqueue_work(self, reply, kind: str, meta, buffers, tenant) -> None:
+        """Queue a collective, ring leg or pre-copy round on ``tenant``.
+        These consume resident state already parked here, so they block
+        (TCP backpressure) instead of answering BUSY."""
+        item = WorkItem(kind, meta, buffers, reply, 1.0,
+                        f"<{kind.lower()}>", None, None,
+                        trace=self._parse_trace(meta))
+        self.dispatcher.submit(tenant, item, block=True)
+
+    def _launch_deferred(self, item: WorkItem):
+        """Dispatcher arm of a collective, ring leg or pre-copy round: the
+        launch is empty and the work runs as the deferred flush, so the
+        dispatcher launches the connection's next queued EXECUTE first."""
+        flushes = {"ALLREDUCE_SHIP": self._flush_allreduce,
+                   "ALLGATHER_SHIP": self._flush_allgather,
+                   "FABRIC_ALLREDUCE": self._flush_fabric_allreduce,
+                   "SNAPSHOT_DELTA": self._flush_snapshot_delta}
+
+        def flush(_item=item):
+            kind = _item.kind
+            try:
+                flushes[kind](_item)
+            except Exception as e:  # noqa: BLE001 - reply, keep serving
+                if isinstance(e, KeyError) and e.args:
+                    error = str(e.args[0])
+                elif kind == "SNAPSHOT_DELTA" and \
+                        isinstance(e, (ConnectionError, OSError)):
+                    # the target died mid-round: the session survives
+                    # and the orchestrator decides (retry or abort)
+                    error = f"delta ship failed: {e}"
+                else:
+                    log.exception("%s failed", kind)
+                    error = str(e)
+                if kind == "FABRIC_ALLREDUCE":
+                    self._abort_fabric(_item, error)
+                else:
+                    self._safe_reply(_item, "ERROR", {"error": error}, [])
+
+        return flush
+
+    # -- federated collectives (protocol v7) ----------------------------
+
+    def _enqueue_collective(self, reply, kind: str, meta, buffers,
+                            tenant) -> None:
+        if self._version_gate(reply, meta, kind, protocol.FED_MIN_VERSION):
+            self._enqueue_work(reply, kind, meta, buffers, tenant)
+
+    def _collective_sources(self, ids, free_src: bool) -> List[torch.Tensor]:
+        """The named resident buffers; ``free_src`` consumes them (the
+        partials a reduce retires, with no FREE round trip)."""
+        parts = []
+        for sid in ids:
+            sid = str(sid)
+            with self._lock:
+                arr = self._buffers.get(sid)
+            if arr is None:
+                raise KeyError(f"unknown buffer {sid}")
+            arr = self._resolve(arr)
+            parts.append(arr)
+            if free_src:
+                with self._lock:
+                    if self._pop_buffer(sid) is not None:
+                        self._release_resident(arr)
+        return parts
+
+    def _accumulate(self, terms: List[torch.Tensor]) -> torch.Tensor:
+        """Sum on this worker's device, left to right, into a fresh
+        tensor.  bf16 and f16 terms are summed in f32 and cast back once
+        (widening is exact and the f32 adds are IEEE, so the total equals
+        the reference's numpy sum bit for bit); integers and bools sum
+        exactly."""
+        out_dtype = terms[0].dtype
+        acc_dtype = torch.float32 \
+            if out_dtype in (torch.float16, torch.bfloat16) else out_dtype
+        with DEVICE_GATE.shared():
+            total = terms[0].to(self.device, acc_dtype, copy=True)
+            for t in terms[1:]:
+                total = total + t.to(self.device, acc_dtype)
+            return total.to(out_dtype)
+
+    def _install_resident(self, rid: str, total: torch.Tensor,
+                          conn_ns: str) -> str:
+        """Park a reduced total resident under a client-minted id.  A
+        re-install over an existing id releases the old buffer first."""
+        if not rid.startswith(conn_ns):
+            # only ids the connection-namespace remap produced: a raw id
+            # could clobber another client's buffer
+            raise ValueError("result_id must be a c-namespace id")
+        with self._lock:
+            old = self._pop_buffer(rid)
+        if old is not None:
+            old = self._resolve(old)
+            with self._lock:
+                self._release_resident(old)
+        with self._lock:
+            err = self._admit_resident(self._leaf_nbytes(total))
+        if err:
+            raise RuntimeError(err)
+        with DEVICE_GATE.shared():
+            arr = total.to(self.device)
+        with self._lock:
+            self._buffers[rid] = arr
+            self._touch_buf(rid)
+        return rid
+
+    def _attr_collective(self, item: WorkItem, ship_s: float) -> None:
+        """The reduce-and-ship tail on the tenant's transfer ledger; the
+        completion anchor moves so the next launch's gap excludes it."""
+        if self.profiler is not None and item.tenant is not None:
+            self.profiler.attribute(item.tenant.conn_id, "transfer",
+                                    max(ship_s, 0.0), qos=item.tenant.qos)
+        self._last_completion_m = time.monotonic()
+
+    def _host(self, arr: torch.Tensor) -> torch.Tensor:
+        """A device tensor's host copy for the wire or the disk."""
+        with DEVICE_GATE.shared():
+            return arr.detach().cpu()
+
+    def _flush_allreduce(self, item: WorkItem) -> None:
+        meta, buffers = item.meta, item.buffers
+        op = meta.get("op", "sum")
+        if op != "sum":
+            raise ValueError(f"unsupported collective op {op!r}")
+        parts = self._collective_sources(meta.get("buf_ids") or [],
+                                         bool(meta.get("free_src")))
+        acc = None
+        acc_bufs = meta.get("acc_bufs")
+        if acc_bufs:
+            # the client's accumulator came ahead as an ephemeral PUT
+            acc = self._take_shard(str(acc_bufs[0]))
+        elif buffers:
+            acc = buffers[0]
+        terms = parts + ([acc] if acc is not None else [])
+        if not terms:
+            raise ValueError("ALLREDUCE_SHIP with nothing to reduce")
+        m1 = time.monotonic()
+        total = self._accumulate(terms)
+        rmeta = {"op": op, "n_src": len(parts), "shape": list(total.shape),
+                 "dtype": protocol.WIRE_NAMES[total.dtype]}
+        rid = meta.get("result_id")
+        if rid is not None:
+            rmeta["installed"] = self._install_resident(
+                str(rid), total, meta.get("_conn_ns", ""))
+        nbytes = sum(self._leaf_nbytes(t) for t in terms)
+        self.dispatcher.note_collective(meta.get("_conn_ns", ""),
+                                        "allreduce", nbytes)
+        if not (meta.get("quiet") and meta.get("receipt_only")):
+            # fire-and-forget installs skip the frame (errors still
+            # reply); a receipt_only reply carries no array
+            rbufs = [] if meta.get("receipt_only") else [self._host(total)]
+            self._safe_reply(item, "ALLREDUCE_SHIP_OK",
+                             self._traced_meta(item, rmeta), rbufs,
+                             compress=True)
+        self._attr_collective(item, time.monotonic() - m1)
+
+    def _flush_allgather(self, item: WorkItem) -> None:
+        meta = item.meta
+        axis = int(meta.get("axis", 0) or 0)
+        parts = self._collective_sources(meta.get("buf_ids") or [],
+                                         bool(meta.get("free_src")))
+        if not parts:
+            raise ValueError("ALLGATHER_SHIP with no source buffers")
+        m1 = time.monotonic()
+        # one frame leaves the worker however many local pieces fed it
+        with DEVICE_GATE.shared():
+            piece = (parts[0] if len(parts) == 1
+                     else torch.cat(parts, dim=axis)).detach().cpu()
+        rmeta = {"n_src": len(parts), "shape": list(piece.shape),
+                 "dtype": protocol.WIRE_NAMES[piece.dtype]}
+        self.dispatcher.note_collective(
+            meta.get("_conn_ns", ""), "allgather",
+            sum(self._leaf_nbytes(p) for p in parts))
+        self._safe_reply(item, "ALLGATHER_SHIP_OK",
+                         self._traced_meta(item, rmeta), [piece],
+                         compress=True)
+        self._attr_collective(item, time.monotonic() - m1)
+
+    # -- peer fabric (protocol v9) ----------------------------------------
+
+    def _handle_fabric_open(self, reply, meta) -> None:
+        """Rendezvous: make (or replace) this worker's fabric session
+        under ``cid`` and ack at once.  The client opens every member
+        before any leg flies, so no PEER hop can race its session; a
+        replaced session is aborted, and its flush errors against its own
+        object, never the new one."""
+        if not self._version_gate(reply, meta, "FABRIC_OPEN",
+                                  protocol.FABRIC_MIN_VERSION):
+            return
+        cid = str(meta.get("cid") or "")
+        if not cid:
+            reply("ERROR", {"error": "FABRIC_OPEN without cid"}, [])
+            return
+        sess = _FabricCollective(cid)
+        with self._lock:
+            old, self._fab_session = self._fab_session, sess
+        if old is not None:
+            old.abort(f"fabric session replaced by {cid!r}")
+        reply("FABRIC_OPEN_OK", {"cid": cid, "worker_uid": self.worker_uid},
+              [])
+
+    def _enqueue_fabric_allreduce(self, reply, meta, buffers,
+                                  tenant) -> None:
+        """A ring leg rides the owning connection's tenant, so its hops
+        overlap the connection's next queued EXECUTE and its bytes are
+        that tenant's."""
+        if self._version_gate(reply, meta, "FABRIC_ALLREDUCE",
+                              protocol.FABRIC_MIN_VERSION):
+            self._enqueue_work(reply, "FABRIC_ALLREDUCE", meta, buffers,
+                               tenant)
+
+    def _abort_fabric(self, item: WorkItem, error: str) -> None:
+        """Error arm of a ring leg: clear the slot if it still holds this
+        leg's session, wake its waiters, reply ERROR."""
+        cid = str(item.meta.get("cid") or "")
+        with self._lock:
+            sess = self._fab_session
+            if sess is not None and sess.cid == cid:
+                self._fab_session = None
+            else:
+                sess = None
+            self._fab_stats["aborted_total"] += 1
+        if sess is not None:
+            sess.state = "aborted"
+            sess.abort(error)
+        self._safe_reply(item, "ERROR", {"error": error}, [])
+
+    def _ship_hop(self, url: str, quant: bool, send, host) -> tuple:
+        """One hop over a pooled link: ``send(link, host)``; returns the
+        (raw, wire) bytes it moved."""
+        link = self._peer_pool.lease(url, token=self.token, quantize=quant)
+        try:
+            w0 = link.wire_bytes
+            send(link, host)
+            return self._leaf_nbytes(host), link.wire_bytes - w0
+        finally:
+            self._peer_pool.release(link)
+
+    def _flush_fabric_allreduce(self, item: WorkItem) -> None:
+        """One leg of the accumulator-relay ring.  Member 0 ships its
+        pre-reduced partial to member 1; each member adds its partial to
+        the running sum and relays it up-ring (PEER_REDUCE); the last
+        holds the total and fans it down-ring (PEER_INSTALL, forwarded
+        before the local install).  Every member installs the total
+        under ``result_id`` and replies a receipt.  ``ring`` and
+        ``index`` come off the wire and are bounded before use.  No wait
+        here is inside the device gate or the worker's lock."""
+        meta = item.meta
+        cid = str(meta.get("cid") or "")
+        with self._lock:
+            sess = self._fab_session
+        if sess is None or sess.cid != cid:
+            raise ValueError(
+                f"FABRIC_ALLREDUCE without an open fabric session "
+                f"(cid={cid!r}): send FABRIC_OPEN first")
+        if sess.state != "open":
+            raise ValueError(f"fabric session {cid!r} is {sess.state!r}, "
+                             f"not open")
+        op = str(meta.get("op", "sum") or "sum")
+        if op != "sum":
+            raise ValueError(f"unsupported collective op {op!r}")
+        ring = meta.get("ring") or []
+        n = len(ring)
+        if n < 2 or n > protocol.MAX_FABRIC_RING:
+            raise ValueError(f"fabric ring size {n} outside "
+                             f"[2, {protocol.MAX_FABRIC_RING}]")
+        index = int(meta.get("index", -1))
+        if index < 0 or index >= n:
+            raise ValueError(f"fabric ring index {index} outside [0, {n})")
+        sess.state = "reducing"
+        quant = bool(meta.get("quant"))
+        parts = self._collective_sources(meta.get("buf_ids") or [],
+                                         bool(meta.get("free_src")))
+        if not parts:
+            raise ValueError("FABRIC_ALLREDUCE with nothing to reduce")
+        m0 = time.monotonic()
+        # local pre-reduction: one payload rides each hop however many
+        # partials this member holds
+        running = self._accumulate(parts)
+        if index > 0:
+            upstream = sess.take("reduce", index, FABRIC_HOP_TIMEOUT_S)
+            running = self._accumulate([running, upstream])
+        hops = link_raw = link_wire = 0
+        if index < n - 1:
+            raw, wire = self._ship_hop(
+                str((ring[index + 1] or {}).get("url") or ""), quant,
+                lambda link, h: link.ship_reduce(cid, index + 1, h, op=op),
+                self._host(running))
+            hops, link_raw, link_wire = hops + 1, link_raw + raw, \
+                link_wire + wire
+            total = sess.take("install", index, FABRIC_HOP_TIMEOUT_S)
+        else:
+            total = running
+        if index > 0:
+            raw, wire = self._ship_hop(
+                str((ring[index - 1] or {}).get("url") or ""), quant,
+                lambda link, h: link.ship_install(cid, index - 1, h),
+                self._host(total))
+            hops, link_raw, link_wire = hops + 1, link_raw + raw, \
+                link_wire + wire
+        rid = meta.get("result_id")
+        installed = None
+        if rid is not None:
+            installed = self._install_resident(str(rid), total,
+                                               meta.get("_conn_ns", ""))
+        elapsed = time.monotonic() - m0
+        nbytes = sum(self._leaf_nbytes(p) for p in parts)
+        self.dispatcher.note_collective(meta.get("_conn_ns", ""),
+                                        "allreduce", nbytes)
+        with self._lock:
+            if index == 0:
+                self._fab_stats["rings_total"] += 1
+            self._fab_stats["peer_raw_bytes_total"] += link_raw
+            self._fab_stats["peer_wire_bytes_total"] += link_wire
+        rmeta = {"cid": cid, "index": index, "hops": hops, "op": op,
+                 "n_src": len(parts), "shape": list(total.shape),
+                 "dtype": protocol.WIRE_NAMES[total.dtype],
+                 "peer_raw_bytes": link_raw, "peer_wire_bytes": link_wire,
+                 "elapsed_ms": round(elapsed * 1e3, 3)}
+        if installed is not None:
+            rmeta["installed"] = installed
+        if item.trace:
+            d = self.tracer.record_span(
+                "fabric.ring", m0, self.tracer.clock.now(),
+                parent=item.trace,
+                attrs={"cid": cid, "index": index, "workers": n,
+                       "hops": hops, "raw_bytes": link_raw,
+                       "wire_bytes": link_wire})
+            if d is not None:
+                item.trace_spans.append(d)
+        with self._lock:
+            if self._fab_session is sess:
+                self._fab_session = None
+        sess.state = "done"
+        # a receipt: the total never rides back to the client
+        self._safe_reply(item, "FABRIC_ALLREDUCE_OK",
+                         self._traced_meta(item, rmeta), [])
+        self._attr_collective(item, elapsed)
+
+    def _handle_peer_hop(self, reply, kind: str, meta, buffers) -> None:
+        """A ring neighbour's hop (PEER_REDUCE up-ring, PEER_INSTALL
+        down-ring): deposit the payload for this worker's own leg and
+        ack; the ack is the ring's backpressure."""
+        if not self._version_gate(reply, meta, kind,
+                                  protocol.FABRIC_MIN_VERSION):
+            return
+        cid = str(meta.get("cid") or "")
+        try:
+            step = int(meta.get("step", -1))
+        except (TypeError, ValueError):
+            step = -1
+        if step < 0 or step >= protocol.MAX_FABRIC_RING:
+            reply("ERROR", {"error": f"peer step {step} outside "
+                                     f"[0, {protocol.MAX_FABRIC_RING})"}, [])
+            return
+        if not buffers:
+            reply("ERROR", {"error": f"{kind} without payload"}, [])
+            return
+        with self._lock:
+            sess = self._fab_session
+        if sess is None or sess.cid != cid or \
+                sess.state not in ("open", "reducing"):
+            reply("ERROR", {"error": f"no open fabric session for cid "
+                                     f"{cid!r} (send FABRIC_OPEN to every "
+                                     f"ring member first)"}, [])
+            return
+        table = "reduce" if kind == "PEER_REDUCE" else "install"
+        sess.deposit(table, step, buffers[0])
+        with self._lock:
+            self._fab_stats[f"{table}_hops_total"] += 1
+        reply(f"{kind}_OK", {"cid": cid, "step": step}, [])
+
+    def fabric_stats(self) -> Dict[str, object]:
+        """INFO ``fabric``: lifetime ring, hop and byte counters, the
+        open session and the peer-link pool's ledger."""
+        with self._lock:
+            out: Dict[str, object] = dict(self._fab_stats)
+            sess = self._fab_session
+            out["session"] = {"cid": sess.cid, "state": sess.state} \
+                if sess is not None else None
+        out["pool"] = self._peer_pool.snapshot()
+        return out
+
+    # -- archives from outside COMPILE ------------------------------------
+
+    def _load_module(self, blob: bytes):
+        """Check and load an archive onto this worker's device; the move
+        of its constants is device work, so it enters the gate."""
+        with DEVICE_GATE.shared():
+            return program.load_program(blob, self.device)
+
+    def _load_archive(self, exe_id: str, blob: bytes, mflops: int) -> None:
+        """Load an archive from a snapshot directory or a migrating peer,
+        neither more trusted than a tenant: it must hash to its id and
+        pass the program check before anything unpickles it."""
+        if not _EXE_ID.fullmatch(str(exe_id)) or _exe_id(blob) != exe_id:
+            raise ValueError(f"archive does not hash to its id {exe_id!r}")
+        with self._lock:
+            known = exe_id in self._exe_cache
+        if known:
+            return
+        module = self._load_module(blob)
+        with self._lock:
+            self._exe_cache.setdefault(exe_id, module)
+            self._exe_blobs.setdefault(exe_id, blob)
+            self._exe_costs.setdefault(exe_id, max(int(mflops), 1))
+
+    # -- snapshot / restore -------------------------------------------------
+
+    def _state_path(self, state_dir) -> str:
+        """``state_dir`` (off the wire) resolved inside ``state_root``."""
+        if self.state_root is None:
+            raise ValueError("SNAPSHOT / RESTORE need the worker's "
+                             "state_root (state_root= or --state-root)")
+        if not isinstance(state_dir, str) or not state_dir:
+            raise ValueError("SNAPSHOT / RESTORE without a state_dir")
+        return self._inside(self.state_root, state_dir)
+
+    def _inside(self, root: str, name: str) -> str:
+        """``root/name`` with every link resolved, refused unless it
+        stays inside the state root."""
+        path = os.path.realpath(os.path.join(root, name))
+        if os.path.commonpath([self.state_root, path]) != self.state_root:
+            raise ValueError(f"state path {name!r} resolves outside the "
+                             f"worker's state_root")
+        return path
+
+    def _state_file(self, state_dir: str, name: str, suffix: str) -> str:
+        name = str(name)
+        if not name or name in (".", "..") or "/" in name or "\0" in name:
+            raise ValueError(f"bad snapshot entry {name!r}")
+        return self._inside(state_dir, name + suffix)
+
+    def snapshot_to(self, state_dir: str) -> Dict[str, int]:
+        """Persist resident buffers and executable archives under
+        ``state_dir`` (inside ``state_root``): one raw little-endian file
+        per buffer, its shape and dtype name in ``manifest.json`` (the
+        reference's layout), one ``{exe_id}.pt2`` per archive."""
+        path = self._state_path(state_dir)
+        os.makedirs(path, exist_ok=True)
+        with self._lock:
+            buffers = dict(self._buffers)
+            blobs = dict(self._exe_blobs)
+            costs = dict(self._exe_costs)
+            buf_seq = self._buf_seq
+        manifest = {"buf_seq": buf_seq, "buffers": {}, "executables": {}}
+        nbytes = 0
+        for buf_id, arr in buffers.items():
+            wire = protocol._Wire(self._host(self._resolve(arr)))
+            manifest["buffers"][buf_id] = {"shape": wire.shape,
+                                           "dtype": wire.dtype}
+            with open(self._state_file(path, buf_id, ".npy"), "wb") as f:
+                f.write(memoryview(wire.u8))
+            nbytes += wire.nbytes
+        for exe_id, blob in blobs.items():
+            with open(self._state_file(path, exe_id, ".pt2"), "wb") as f:
+                f.write(blob)
+            manifest["executables"][exe_id] = {"mflops": costs.get(exe_id,
+                                                                   1)}
+        with open(self._state_file(path, "manifest", ".json"), "w") as f:
+            json.dump(manifest, f)
+        return {"buffers": len(buffers), "executables": len(blobs),
+                "bytes": nbytes}
+
+    def restore_from(self, state_dir: str) -> Dict[str, int]:
+        """Re-materialize a snapshot: every archive is checked and loaded
+        first (a refused one restores nothing), then every buffer is
+        admitted and copied to the device; a restored id replaces a
+        resident one."""
+        path = self._state_path(state_dir)
+        with open(self._state_file(path, "manifest", ".json")) as f:
+            manifest = json.load(f)
+        bufs = manifest.get("buffers") or {}
+        exes = manifest.get("executables") or {}
+        for exe_id, info in exes.items():
+            with open(self._state_file(path, exe_id, ".pt2"), "rb") as f:
+                blob = f.read()
+            self._load_archive(exe_id, blob, int((info or {}).get("mflops",
+                                                                  1)))
+        with self._lock:
+            self._buf_seq = max(self._buf_seq,
+                                int(manifest.get("buf_seq", 0) or 0))
+        nbytes = 0
+        for buf_id, desc in bufs.items():
+            fname = self._state_file(path, buf_id, ".npy")
+            raw = bytearray(os.path.getsize(fname))
+            with open(fname, "rb") as f:
+                f.readinto(raw)
+            host = protocol._tensor_of(raw, {"dtype": desc["dtype"],
+                                             "shape": desc["shape"]})
+            self._install_buffer(str(buf_id), host, "restore rejected")
+            nbytes += len(raw)
+        return {"buffers": len(bufs), "executables": len(exes),
+                "bytes": nbytes}
+
+    def _install_buffer(self, buf_id: str, host: torch.Tensor,
+                        what: str) -> None:
+        """Admit ``host``, copy it to the device and publish it under
+        ``buf_id``, replacing (and releasing) what was there."""
+        with self._lock:
+            err = self._admit_resident(self._leaf_nbytes(host))
+        if err:
+            raise RuntimeError(f"{what}: {err}")
+        try:
+            with DEVICE_GATE.shared():
+                arr = host.to(self.device)
+        except Exception:
+            with self._lock:
+                self._release_resident(host)
+            raise
+        self._publish(buf_id, arr)
+
+    def _publish(self, buf_id: str, arr: torch.Tensor) -> None:
+        """Publish an admitted device tensor under ``buf_id``; the
+        buffer it replaces is released."""
+        with self._lock:
+            old = self._pop_buffer(buf_id)
+            self._buffers[buf_id] = arr
+            self._touch_buf(buf_id)
+        if old is not None:
+            old = self._resolve(old)
+            with self._lock:
+                self._release_resident(old)
+
+    # -- streaming live migration (protocol v8) ----------------------------
+
+    def _enqueue_snapshot_delta(self, reply, meta) -> None:
+        """A pre-copy round queues as the lowest-weight ``migration``
+        tenant, so it yields to serving and never starves it."""
+        if not self._version_gate(reply, meta, "SNAPSHOT_DELTA",
+                                  protocol.MIGRATE_MIN_VERSION):
+            return
+        if not meta.get("target_url"):
+            reply("ERROR", {"error": "SNAPSHOT_DELTA without target_url"},
+                  [])
+            return
+        if self._mig_tenant is None:
+            self._mig_tenant = self.dispatcher.register_tenant(
+                "migration", qos=constants.QOS_LOW)
+        self._enqueue_work(reply, "SNAPSHOT_DELTA", meta, [],
+                           self._mig_tenant)
+
+    def _mig_ensure_session(self, meta) -> _MigrationSession:
+        """The one live pre-copy session; a new target closes the old."""
+        target = str(meta["target_url"])
+        with self._lock:
+            sess = self._mig_session
+            old = None
+            if sess is not None and sess.target_url != target:
+                old, self._mig_session, sess = sess, None, None
+        if old is not None:
+            old.close()
+        if sess is None:
+            token = meta.get("target_token")
+            sess = _MigrationSession(
+                self._peer_pool, target,
+                token=str(token) if token is not None else self.token,
+                quantize=bool(meta.get("quant")))
+            with self._lock:
+                self._mig_session = sess
+        return sess
+
+    def _mig_ship_round(self, sess: _MigrationSession,
+                        final: bool) -> Dict[str, object]:
+        """One round: every buffer dirtied since the session's shipped
+        generation, and every archive not shipped yet, go to the target
+        as staged quiet PUTs; new archives are loaded there at once (a
+        prepare-only MIGRATE_COMMIT), so no load lands in the frozen
+        window.  Returns the round's receipt."""
+        t0 = time.monotonic()
+        with self._lock:
+            gen_now = self._write_gen
+            dirty_ids = sorted(bid for bid, g in self._buf_gen.items()
+                               if g > sess.shipped_gen and
+                               bid in self._buffers)
+            dirty = [(bid, self._buffers[bid]) for bid in dirty_ids]
+            blobs = {eid: blob for eid, blob in self._exe_blobs.items()
+                     if eid not in sess.staged_exes}
+            costs = {eid: self._exe_costs.get(eid, 1) for eid in blobs}
+            resident_total = len(self._buffers)
+        st: Dict[str, int] = {}
+        raw = 0
+        for bid, arr in dirty:
+            host = self._host(self._resolve(arr))
+            sid = sess.mint("b")
+            old = sess.staged.pop(bid, None)
+            if old is not None:
+                # re-dirtied since an earlier round: that copy is freed
+                # on the target at commit
+                sess.drops.append(old)
+            sess.staged[bid] = sid
+            sess.link.stage(sid, host, stats=st)
+            raw += self._leaf_nbytes(host)
+        new_exes: Dict[str, str] = {}
+        for eid in sorted(blobs):
+            sid = sess.mint("x")
+            sess.staged_exes[eid] = sid
+            new_exes[eid] = sid
+            sess.link.stage(sid, np.frombuffer(blobs[eid], dtype=np.uint8),
+                            stats=st)
+            raw += len(blobs[eid])
+        sess.link.drain()
+        if new_exes:
+            sess.device._rpc(
+                "MIGRATE_COMMIT",
+                {"manifest": {}, "exes": new_exes, "costs": costs,
+                 "drops": [], "buf_seq": 0, "prepare": True}, [])
+        sess.shipped_gen = gen_now
+        sess.round += 1
+        elapsed = max(time.monotonic() - t0, 1e-9)
+        wire = int(st.get("wire_bytes", 0))
+        sess.raw_bytes += raw
+        sess.wire_bytes += wire
+        with self._lock:
+            dirty_left = sum(1 for bid, g in self._buf_gen.items()
+                             if g > gen_now and bid in self._buffers)
+            ms = self._mig_stats
+            ms["rounds_total"] += 1
+            ms["delta_buffers_total"] += len(dirty)
+            ms["delta_raw_bytes_total"] += raw
+            ms["delta_wire_bytes_total"] += wire
+        if self.profiler is not None:
+            self.profiler.attribute("migration", "transfer", elapsed,
+                                    qos=constants.QOS_LOW)
+        return {"round": sess.round, "buffers": len(dirty),
+                "executables": len(blobs), "raw_bytes": raw,
+                "wire_bytes": wire, "elapsed_ms": round(elapsed * 1e3, 3),
+                "dirty_left": dirty_left, "resident_total": resident_total,
+                "bandwidth_bps": int(wire / elapsed), "final": bool(final)}
+
+    def _flush_snapshot_delta(self, item: WorkItem) -> None:
+        meta = item.meta
+        final = bool(meta.get("final"))
+        sess = self._mig_ensure_session(meta)
+        s0 = self.tracer.clock.now() if item.trace else 0.0
+        rmeta = self._mig_ship_round(sess, final)
+        if item.trace:
+            d = self.tracer.record_span(
+                "migrate.delta", s0, self.tracer.clock.now(),
+                parent=item.trace,
+                attrs={"round": rmeta["round"], "buffers": rmeta["buffers"],
+                       "raw_bytes": rmeta["raw_bytes"],
+                       "wire_bytes": rmeta["wire_bytes"], "final": final})
+            if d is not None:
+                item.trace_spans.append(d)
+        self._safe_reply(item, "SNAPSHOT_DELTA_OK",
+                         self._traced_meta(item, rmeta), [])
+        self._last_completion_m = time.monotonic()
+
+    def _handle_migrate_freeze(self, reply, meta) -> None:
+        """Freeze for the final round: mutations wait at the handlers,
+        the dispatcher drains, a hosted engine pauses between steps (never
+        inside one, so never inside a lazy capture); the reply reports
+        the dirty set still to ship."""
+        if not self._version_gate(reply, meta, "MIGRATE_FREEZE",
+                                  protocol.MIGRATE_MIN_VERSION):
+            return
+        self._mig_thaw.clear()
+        try:
+            self.dispatcher.quiesce(timeout=MIGRATE_FREEZE_MAX_S)
+            if self.engine is not None:
+                self.engine.freeze()
+        except TimeoutError as e:
+            self._mig_thaw_now()
+            reply("ERROR", {"error": str(e)}, [])
+            return
+        with self._lock:
+            sess = self._mig_session
+            if sess is not None and sess.state == "live":
+                # a repeated FREEZE must not restart the pause clock
+                sess.state = "frozen"
+                sess.freeze_m = time.monotonic()
+            shipped = sess.shipped_gen if sess is not None else 0
+            dirty = [self._buffers[bid] for bid, g in self._buf_gen.items()
+                     if g > shipped and bid in self._buffers]
+        dirty_bytes = sum(self._leaf_nbytes(self._resolve(a)) for a in dirty)
+        reply("MIGRATE_FREEZE_OK", {"frozen": True,
+                                    "dirty_buffers": len(dirty),
+                                    "dirty_bytes": dirty_bytes}, [])
+
+    def _mig_thaw_now(self) -> None:
+        if self.engine is not None:
+            self.engine.thaw()
+        self._mig_thaw.set()
+
+    def _handle_migrate_commit(self, reply, meta) -> None:
+        """Dual-role MIGRATE_COMMIT: with a ``manifest`` this worker is
+        the target publishing staged state; without one it is the source
+        ending its session (``abort`` frees the staged state on the
+        target; otherwise ship the final frozen delta, publish it on the
+        target, drop the state here).  Both thaw."""
+        if not self._version_gate(reply, meta, "MIGRATE_COMMIT",
+                                  protocol.MIGRATE_MIN_VERSION):
+            return
+        if meta.get("manifest") is not None:
+            self._migrate_install(reply, meta)
+            return
+        with self._lock:
+            sess, self._mig_session = self._mig_session, None
+        if meta.get("abort"):
+            if sess is not None:
+                staged = list(sess.staged.values()) + \
+                    list(sess.staged_exes.values()) + list(sess.drops)
+                try:
+                    if staged:
+                        sess.device._submit(
+                            "FREE", {"buf_ids": staged, "quiet": True},
+                            [], want_reply=False)
+                except (ConnectionError, OSError):
+                    pass    # the target is gone: nothing to free there
+                sess.state = "aborted"
+                sess.close()
+            with self._lock:
+                self._mig_stats["aborted_total"] += 1
+            self._mig_thaw_now()
+            reply("MIGRATE_COMMIT_OK", {"aborted": True}, [])
+            return
+        if sess is None:
+            reply("ERROR", {"error": "MIGRATE_COMMIT without a live "
+                                     "migration session (send "
+                                     "SNAPSHOT_DELTA first)"}, [])
+            return
+        if sess.state != "frozen" or self._mig_thaw.is_set():
+            with self._lock:
+                self._mig_session = sess    # still live: not consumed
+            reply("ERROR", {"error": "MIGRATE_COMMIT on a thawed worker "
+                                     "(send MIGRATE_FREEZE first)"}, [])
+            return
+        try:
+            # a mutation that raced past the freeze check drains here;
+            # the frozen final round ships what it dirtied
+            self.dispatcher.quiesce(timeout=MIGRATE_FREEZE_MAX_S)
+            final = self._mig_ship_round(sess, final=True)
+            with self._lock:
+                manifest = {rid: sid for rid, sid in sess.staged.items()
+                            if rid in self._buffers}
+                drops = sess.drops + [sid for rid, sid in sess.staged.items()
+                                      if rid not in manifest]
+                buf_seq = self._buf_seq
+            # archives were loaded on the target during the rounds, so
+            # the frozen commit only flips buffers live
+            rmeta = sess.device._rpc(
+                "MIGRATE_COMMIT", {"manifest": manifest, "exes": {},
+                                   "drops": drops, "buf_seq": buf_seq},
+                [])[1]
+        except (ConnectionError, OSError, RuntimeError) as e:
+            # the target died at the flip: the source keeps its state
+            with self._lock:
+                self._mig_session = sess
+            self._mig_thaw_now()
+            reply("ERROR", {"error": f"migrate commit failed: {e}"}, [])
+            return
+        # the state lives on the target now: drop it here, so a client
+        # that reconnects never sees stale buffers
+        renamed = dict(rmeta.get("ids") or {})
+        with self._lock:
+            self._mig_moved = {
+                "target_url": sess.target_url,
+                "ids": {rid: str(renamed.get(rid, rid)) for rid in manifest}}
+            dropped, self._buffers = self._buffers, {}
+            self._buf_gen.clear()
+            self._ephemeral.clear()
+            self._copy_durs.clear()
+        for arr in dropped.values():
+            try:
+                arr = self._resolve(arr)
+            # a failed async PUT holds no resident bytes to release
+            except Exception:  # noqa: BLE001 - failed async PUT
+                continue
+            with self._lock:
+                self._release_resident(arr)
+        pause_ms = 0.0
+        if sess.freeze_m is not None:
+            pause_ms = round((time.monotonic() - sess.freeze_m) * 1e3, 3)
+        with self._lock:
+            ms = self._mig_stats
+            ms["streaming_total"] += 1
+            ms["pause_ms_last"] = pause_ms
+            ms["pause_ms_max"] = max(ms["pause_ms_max"], pause_ms)
+        out = {"pause_ms": pause_ms, "rounds": sess.round,
+               "buffers": int(rmeta.get("installed", 0)),
+               "executables": len(sess.staged_exes),
+               "raw_bytes": sess.raw_bytes, "wire_bytes": sess.wire_bytes,
+               "final_round": final, "ids": renamed}
+        sess.state = "committed"
+        sess.close()
+        self._mig_thaw_now()
+        reply("MIGRATE_COMMIT_OK", out, [])
+
+    def _migrate_install(self, reply, meta) -> None:
+        """Target side of MIGRATE_COMMIT: publish the staged buffers under
+        their real ids (the bytes were admitted at PUT), load the shipped
+        archives (each checked like a tenant's), free superseded copies
+        and move ``buf_seq`` past the source's.  Staged ids must be this
+        connection's ``c-`` ids: a peer cannot rename another client's
+        buffers.
+
+        Client-minted ids move to a fresh connection namespace here (the
+        source's ``cn3:`` may be a live connection of this worker), and
+        the receipt's ``ids`` maps each old id to its new one.  A
+        manifest id that already names a buffer here refuses the whole
+        install before anything is published: a migration never replaces
+        another client's state (the reference's install did)."""
+        conn_ns = meta.get("_conn_ns", "")
+
+        def staged(sid) -> str:
+            sid = str(sid)
+            if not sid.startswith("c-"):
+                raise ValueError(f"staged id {sid!r} is not a c- id")
+            return conn_ns + sid
+
+        manifest = meta.get("manifest") or {}
+        exes = meta.get("exes") or {}
+        costs = meta.get("costs") or {}
+        drops = meta.get("drops") or []
+        ids: Dict[str, str] = {}
+        with self._lock:
+            # moved first, so no id PUT meanwhile meets a shipped one
+            self._buf_seq = max(self._buf_seq,
+                                int(meta.get("buf_seq", 0) or 0))
+            fresh: Dict[str, str] = {}
+            for rid in map(str, manifest):
+                ns, sep, cid = rid.partition(":")
+                if sep and cid.startswith("c-"):
+                    if ns not in fresh:
+                        self._conn_seq += 1
+                        fresh[ns] = f"cn{self._conn_seq}:"
+                    ids[rid] = fresh[ns] + cid
+                else:
+                    ids[rid] = rid
+            taken = sorted(rid for rid in manifest
+                           if ids[str(rid)] in self._buffers)
+        if taken:
+            reply("ERROR", {"error": f"migrate install: {taken[:5]} "
+                                     f"({len(taken)} total) already name "
+                                     f"buffers here"}, [])
+            return
+        missing = []
+        for eid, sid in sorted(exes.items()):
+            with self._lock:
+                arr = self._pop_buffer(staged(sid))
+            if arr is None:
+                missing.append(eid)
+                continue
+            arr = self._resolve(arr)
+            blob = self._host(arr).numpy().tobytes()
+            with self._lock:
+                self._release_resident(arr)
+            self._load_archive(str(eid), blob, int(costs.get(eid, 1) or 1))
+        installed = 0
+        for rid, sid in sorted(manifest.items()):
+            with self._lock:
+                arr = self._pop_buffer(staged(sid))
+            if arr is None:
+                missing.append(rid)
+                continue
+            self._publish(ids[str(rid)], self._resolve(arr))
+            installed += 1
+        for sid in drops:
+            with self._lock:
+                arr = self._pop_buffer(staged(sid))
+            if arr is not None:
+                arr = self._resolve(arr)
+                with self._lock:
+                    self._release_resident(arr)
+        with self._lock:
+            self._mig_stats["installed_total"] += installed
+        if missing:
+            reply("ERROR", {"error": f"migrate install missing staged state "
+                                     f"for {missing[:5]} ({len(missing)} "
+                                     f"total)"}, [])
+            return
+        reply("MIGRATE_COMMIT_OK",
+              {"installed": installed, "executables": len(exes),
+               "ids": {rid: new for rid, new in ids.items() if new != rid}},
+              [])
+
+    def migration_stats(self) -> Dict[str, object]:
+        """INFO ``migration``: lifetime round, byte and pause counters,
+        whether the worker is frozen, and the live session."""
+        with self._lock:
+            out: Dict[str, object] = dict(self._mig_stats)
+            sess = self._mig_session
+            out["frozen"] = not self._mig_thaw.is_set()
+            out["session"] = {
+                "target_url": sess.target_url, "round": sess.round,
+                "staged_buffers": len(sess.staged),
+                "staged_executables": len(sess.staged_exes),
+                "raw_bytes": sess.raw_bytes,
+                "wire_bytes": sess.wire_bytes,
+            } if sess is not None else None
+        return out
+
+    def _moved_for(self, conn_ns: str) -> Optional[Dict[str, object]]:
+        """INFO ``migration.moved`` for one connection: where the last
+        committed migration went, and the connection's client-minted
+        ids -> their ids there (worker-minted ids keep their names)."""
+        with self._lock:
+            moved = self._mig_moved
+        if moved is None:
+            return None
+        return {"target_url": moved["target_url"],
+                "ids": {rid[len(conn_ns):]: new
+                        for rid, new in moved["ids"].items()
+                        if conn_ns and rid.startswith(conn_ns)}}
+
     def _execute_batch(self, items: List[WorkItem], peek_next):
         """Dispatcher callback: launch one work batch.  Returns a
         deferred flush (blocking result copy + reply) when there is
         one, so the dispatcher can overlap it with the next launch."""
+        if len(items) == 1 and items[0].kind != "EXECUTE":
+            return self._launch_deferred(items[0])
         if len(items) == 1:
             return self._execute_one(items[0], peek_next)
         return self._execute_fused(items, peek_next)
@@ -1147,6 +2333,7 @@ class RemoteVTPUWorker:
                         self._buf_seq += 1
                         buf_id = f"buf-{self._buf_seq}"
                     self._buffers[buf_id] = leaf
+                    self._touch_buf(buf_id)
                     ids.append(buf_id)
                     shapes.append(list(leaf.shape))
                     dtypes.append(protocol.WIRE_NAMES[leaf.dtype])
@@ -1223,6 +2410,9 @@ class RemoteVTPUWorker:
             if self.profiler is not None else None,
             "serving": self.engine.snapshot()
             if self.engine is not None else None,
+            "migration": dict(self.migration_stats(), moved=self._moved_for(
+                meta.get("_conn_ns", ""))),
+            "fabric": self.fabric_stats(),
             "worker_uid": self.worker_uid,
             "wire_compression": wire,
             "devices": [{"id": 0, "platform": platform,
@@ -1242,10 +2432,11 @@ class RemoteVTPUWorker:
         with self._lock:
             known = exe_id in self._exe_cache
         if not known:
-            module = program.load_program(blob, self.device)
+            module = self._load_module(blob)
             with self._lock:
                 if exe_id not in self._exe_cache:
                     self._exe_cache[exe_id] = module
+                    self._exe_blobs[exe_id] = blob
                     # charge model: the client's FLOP estimate
                     self._exe_costs[exe_id] = int(
                         meta.get("mflops_hint", 1))
@@ -1298,6 +2489,7 @@ class RemoteVTPUWorker:
                 raise
         with self._lock:
             self._buffers[buf_id] = arr
+            self._touch_buf(buf_id)
             if v3 and meta.get("ephemeral"):
                 self._ephemeral.add(buf_id)
         if v3 and meta.get("quiet"):
@@ -1308,9 +2500,7 @@ class RemoteVTPUWorker:
         freed = 0
         for buf_id in list(meta.get("buf_ids", [])):
             with self._lock:
-                arr = self._buffers.pop(buf_id, None)
-                self._copy_durs.pop(buf_id, None)
-                self._ephemeral.discard(buf_id)
+                arr = self._pop_buffer(buf_id)
             if arr is not None:
                 arr = self._resolve(arr)    # async PUT still in flight
                 with self._lock:
@@ -1343,5 +2533,9 @@ class RemoteVTPUWorker:
             self._free(reply, meta)
         elif kind == "FETCH":
             self._fetch(reply, meta)
+        elif kind == "SNAPSHOT":
+            reply("SNAPSHOT_OK", self.snapshot_to(meta.get("state_dir")), [])
+        elif kind == "RESTORE":
+            reply("RESTORE_OK", self.restore_from(meta.get("state_dir")), [])
         else:
             reply("ERROR", {"error": f"unknown kind {kind}"}, [])

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import itertools
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from .. import constants
@@ -50,6 +51,8 @@ from .kvpool import BlockAccount, prompt_block_keys
 DEFAULT_MAX_WAITING = 64
 #: fused decode batch capacity (power-of-two bucketed by the runner)
 DEFAULT_MAX_BATCH = 8
+#: how long freeze() waits for the step in flight to end
+FREEZE_WAIT_S = 30.0
 #: prompt tokens prefILLED per engine step, across sequences — the
 #: knob that bounds how long a long prompt can stall the decode batch
 DEFAULT_PREFILL_CHUNK = 64
@@ -234,6 +237,10 @@ class ServingEngine:
         #: still queue and are served after thaw()
         # guarded by: _cv
         self._frozen = False
+        #: a step is running (freeze() waits for it to end, so a freeze
+        #: never lands inside a step or a lazy graph capture)
+        # guarded by: _cv
+        self._stepping = False
         #: sequences adopted from / handed to another engine by a
         #: streaming migration (snapshot counters)
         # guarded by: _cv
@@ -515,6 +522,15 @@ class ServingEngine:
         with self._cv:
             if self._frozen:
                 return False    # MIGRATE_FREEZE: the tenant is dark
+            self._stepping = True
+        try:
+            return self._step()
+        finally:
+            with self._cv:
+                self._stepping = False
+                self._cv.notify_all()
+
+    def _step(self) -> bool:
         now = self.clock.monotonic()
         events: List[tuple] = []       # (seq, new_tokens, done, info)
         shed, admitted_seqs = self._admit_locked_phase(now, events)
@@ -628,10 +644,22 @@ class ServingEngine:
         """Pause the stepper (MIGRATE_FREEZE): step() becomes a no-op,
         so no decode write can dirty the pool while the final
         migration round ships.  Submissions still queue — the pause is
-        bounded by the final delta, not by arrivals."""
+        bounded by the final delta, not by arrivals.  From another
+        thread than the stepper's it returns once the step in flight has
+        ended (TimeoutError after :data:`FREEZE_WAIT_S`), so no token is
+        emitted after it and no graph capture is cut short."""
+        deadline = time.monotonic() + FREEZE_WAIT_S
         with self._cv:
             self._frozen = True
             self._cv.notify_all()
+            if threading.current_thread() is self._thread:
+                return
+            while self._stepping:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(f"engine step still running after "
+                                       f"{FREEZE_WAIT_S:.0f}s")
+                self._cv.wait(timeout=remaining)
 
     def thaw(self) -> None:
         with self._cv:

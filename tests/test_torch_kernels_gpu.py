@@ -615,3 +615,155 @@ def test_worker_hosted_engine_serves_generate_and_kv_ship_on_the_card(gen):
         worker.stop()
     assert worker.resident_bytes == 0
     assert engine.snapshot()["kv"]["used"] == 0
+
+
+def test_fabric_rings_beside_a_hosted_engine_capturing_lazily(gen):
+    """Three workers on the card in one process: the first hosts an
+    engine with an n-gram draft (verify and wider decode buckets captured
+    lazily on its stepper thread) that streams speculative GENERATEs,
+    while fabric rings over all three run back to back.  Each ring's
+    flush waits on peer deposits and acks that arrive on other handler
+    threads, never inside the device gate, so no capture can deadlock
+    against it.  Every ring's total equals its arithmetic (f32 adds in
+    ring order), every request's tokens equal generate's in f32, and no
+    thread fails."""
+    import random
+    import threading
+
+    from tensorfusion_tpu_torch.remoting import (FederatedDevice,
+                                                 RemoteDevice,
+                                                 RemoteVTPUWorker)
+    from tensorfusion_tpu_torch.serving import (LlamaRunner, NGramDraft,
+                                                ServingEngine)
+
+    cfg = llama.LlamaConfig(vocab_size=1024, dim=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, ffn_dim=512, dtype=torch.float32)
+    params = llama.init_params(cfg, gen)
+    runner = LlamaRunner(params, cfg, num_blocks=512, block_size=4)
+    engine = ServingEngine(runner, max_batch=4, prefill_chunk_tokens=32,
+                           draft=NGramDraft(n=2), spec_k=3)
+    rng = random.Random(5)
+    requests = [([rng.randrange(cfg.vocab_size) for _ in range(8)]
+                 * rng.randrange(4, 12), rng.randrange(12, 24))
+                for _ in range(9)]
+    workers = [RemoteVTPUWorker(engine=engine, device="cuda")] + \
+        [RemoteVTPUWorker(device="cuda") for _ in range(2)]
+    for w in workers:
+        w.start()
+    gen_dev = RemoteDevice(workers[0].url, timeout_s=120)
+    fed = FederatedDevice([w.url for w in workers], ring=True, timeout_s=120)
+    outs, failures, rings = {}, [], [0]
+    done = threading.Event()
+
+    def generate(i):
+        prompt, new = requests[i]
+        try:
+            outs[i] = gen_dev.generate(prompt, new)["tokens"]
+        except Exception as e:  # noqa: BLE001 - reported below
+            failures.append(f"generate {i}: {type(e).__name__}: {e}")
+
+    def ring_loop():
+        # a client that holds no device: its partials and their expected
+        # total live on the CPU (device work on this thread would itself
+        # race the engine's captures), and IEEE f32 adds agree bit for bit
+        host_gen = torch.Generator().manual_seed(6)
+        try:
+            assert fed.fabric_supported()
+            while not done.is_set() or rings[0] < 3:
+                parts = [torch.randn((256, 1024), generator=host_gen)
+                         for _ in workers]
+                want = parts[0]
+                for p in parts[1:]:
+                    want = p + want
+                handles = [dev.put(p) for dev, p in zip(fed.workers, parts)]
+                out = fed.all_reduce(handles, free_src=True)
+                assert torch.equal(out["value"], want)
+                rings[0] += 1
+        except Exception as e:  # noqa: BLE001 - reported below
+            failures.append(f"ring loop: {type(e).__name__}: {e}")
+
+    looper = threading.Thread(target=ring_loop)
+    try:
+        looper.start()
+        threads = [threading.Thread(target=generate, args=(i,))
+                   for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+    finally:
+        done.set()
+        looper.join(timeout=120)
+        gen_dev.close()
+        fed.close()
+        for w in workers:
+            w.stop()
+    assert not failures, failures
+    assert not looper.is_alive() and rings[0] >= 3
+    assert fed.fed_snapshot()["client_relay_bytes"] == 0
+    assert any(k[0] == "verify" for k in runner.graphs)
+    for i, (prompt, new) in enumerate(requests):
+        want = llama.generate(params, torch.tensor([prompt], device="cuda"),
+                              new, cfg)[0].tolist()
+        assert outs[i] == want, i
+
+
+def test_migration_between_cuda_workers_executes_bit_equal(gen):
+    """A tenant's weights, compiled flash forward and a step_resident
+    state migrate between two workers on the card (two pre-copy rounds,
+    freeze, commit); the same program on the same buffer ids gives the
+    source's pre-freeze result bit for bit, the state arrives exactly,
+    and the source holds nothing after commit."""
+    from tensorfusion_tpu_torch.remoting import (RemoteBuffer, RemoteDevice,
+                                                 RemoteVTPUWorker)
+
+    cfg = llama.LlamaConfig(vocab_size=1024, dim=512, n_layers=3, n_heads=4,
+                            n_kv_heads=2, ffn_dim=1024, dtype=torch.bfloat16,
+                            attn_impl="flash")
+    params = llama.init_params(cfg, gen)
+    host = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                           device="cuda").cpu()
+
+    def last_logits(p, t):
+        return llama.forward(p, t, cfg)[:, -1]
+
+    src, tgt = RemoteVTPUWorker(device="cuda"), RemoteVTPUWorker(device="cuda")
+    for w in (src, tgt):
+        w.start()
+    ten, orch, tdev = (RemoteDevice(u, timeout_s=120)
+                       for u in (src.url, src.url, tgt.url))
+    try:
+        rparams = torch.utils._pytree.tree_map(ten.put, host)
+        layer_fn = ten.remote_jit(lambda layer, x: llama._layer(cfg, layer, x))
+        state = ten.put(params["tok_emb"][tokens.cuda().long()].cpu())
+        state = layer_fn.step_resident(rparams["layers"][0], state, free=state)
+        state.fetch()
+        assert orch.snapshot_delta(tgt.url)["round"] == 1
+        state = layer_fn.step_resident(rparams["layers"][0], state, free=state)
+        want_state = state.fetch()
+        assert orch.snapshot_delta(tgt.url)["buffers"] == 1
+        ops.reset_launch_counts()
+        want = ten.remote_jit(last_logits)(rparams, tokens)
+        assert ops.launch_counts()["flash_attn_fwd"] == cfg.n_layers
+        assert orch.migrate_freeze()["dirty_buffers"] == 0
+        assert orch.migrate_commit()["rounds"] == 3
+        assert src.resident_bytes == 0
+        moved = torch.utils._pytree.tree_map(
+            lambda h: RemoteBuffer(tdev, h.buf_id, h.shape, h.dtype), rparams)
+        ops.reset_launch_counts()
+        got = tdev.remote_jit(last_logits)(moved, tokens)
+        assert ops.launch_counts()["flash_attn_fwd"] == cfg.n_layers
+        assert torch.equal(got, want)
+        sid = ten.info()["migration"]["moved"]["ids"][state.buf_id]
+        assert torch.equal(RemoteBuffer(tdev, sid, state.shape,
+                                        state.dtype).fetch(), want_state)
+        assert tgt.resident_bytes == sum(
+            t.numel() * t.element_size()
+            for t in torch.utils._pytree.tree_leaves(host)) + \
+            want_state.numel() * want_state.element_size()
+    finally:
+        for d in (ten, orch, tdev):
+            d.close()
+        for w in (src, tgt):
+            w.stop()

@@ -348,20 +348,24 @@ def test_worker_prefetch_depth_accounting(worker):
         dev.close()
 
 
-LATER_KINDS = ["COMPILE_MLIR", "SNAPSHOT", "RESTORE",
-               "ALLREDUCE_SHIP", "ALLGATHER_SHIP", "SNAPSHOT_DELTA",
-               "MIGRATE_FREEZE", "MIGRATE_COMMIT", "FABRIC_OPEN",
-               "FABRIC_ALLREDUCE", "PEER_REDUCE", "PEER_INSTALL"]
+LATER_KINDS = ["COMPILE_MLIR"]
+#: the kinds of state and peers, each served behind its version gate
+#: (tests/test_torch_federation.py, test_torch_fabric.py and
+#: test_torch_migration.py)
+STATE_AND_PEER_KINDS = ["SNAPSHOT", "RESTORE", "ALLREDUCE_SHIP",
+                        "ALLGATHER_SHIP", "SNAPSHOT_DELTA", "MIGRATE_FREEZE",
+                        "MIGRATE_COMMIT", "FABRIC_OPEN", "FABRIC_ALLREDUCE",
+                        "PEER_REDUCE", "PEER_INSTALL"]
 
 
 def test_later_part_kinds_get_unknown_kind(worker):
-    """Every registered kind this part does not serve gets the
-    reference's ``unknown kind`` ERROR, never a silent success; the
-    connection keeps serving after each."""
-    assert set(LATER_KINDS) | {"HELLO", "INFO", "COMPILE", "PUT", "FREE",
-                               "FETCH", "EXECUTE", "GENERATE",
-                               "KV_SHIP"} == \
-        set(protocol.REQUEST_KINDS)
+    """Every registered kind the worker does not serve (COMPILE_MLIR, the
+    reference's raw-StableHLO path) gets the reference's ``unknown kind``
+    ERROR, never a silent success; the connection keeps serving after
+    it."""
+    assert set(LATER_KINDS) | set(STATE_AND_PEER_KINDS) | {
+        "HELLO", "INFO", "COMPILE", "PUT", "FREE", "FETCH", "EXECUTE",
+        "GENERATE", "KV_SHIP"} == set(protocol.REQUEST_KINDS)
     dev = _dev(worker)
     try:
         for kind in LATER_KINDS:
