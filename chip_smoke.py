@@ -9,7 +9,7 @@ and make.  It builds the kernels (flash forward, flash backward) and
 libtpf_limiter.so from the checkout (failing if ptxas reports a spill),
 holds every kernel against its plain PyTorch version on the card and
 times it at the main path's shape and at a long one, then drives the
-port's seven paths at Llama-3-8B width (random weights from fixed seeds),
+port's eight paths at Llama-3-8B width (random weights from fixed seeds),
 each with the kernel launch counts set to 0 just before it and read just
 after:
 
@@ -31,6 +31,18 @@ after:
   ``serving.RemoteKVShipper`` (KV_SHIP), with the pool charged on the
   meter while the worker serves and no compute charged for its steps;
 - training: AdamW steps, 8 layers, batch 4 x 1024, metered;
+- the mesh: 4 ranks spawned once on the one card over gloo (NCCL refuses
+  two ranks on one card; gloo stages the ring's send/recv through the
+  host): a sharded train step (fsdp2 x tp2, 4 layers, 4 x 1024, flash, 3
+  steps) against the same steps on one device; its step-3 state saved by
+  ``models.Checkpointer`` and restored onto a fresh state of the same
+  placements, whose step 4 must equal the uninterrupted one bit for bit;
+  ring attention (sp4, causal, 8192 tokens) against the flash kernels on
+  the whole sequence, forward and gradients; a 2-layer ``attn_impl="ring"``
+  Llama loss against one device's flash loss; a 4-stage pipeline (a
+  decoder layer a stage, 8 microbatches of 1 x 1024) against the layers
+  in order; the reference's default MoE config expert-parallel over ep4
+  against one device, outputs and dropped entries;
 - remote execution: a ``remoting.RemoteVTPUWorker`` that owns the card,
   metered, and a ``RemoteDevice`` over loopback; the 8-layer weights PUT
   resident, a ``remote_jit`` last-position forward (flash) called at
@@ -63,7 +75,7 @@ train-step bench (``tensorfusion_tpu_torch.bench_train``).  Each phase
 prints one JSON line; any failure raises and exits non-zero.  The line
 before the last two is the kernel table (its ``launches_by_path`` has
 ``serve``, ``engine``, ``train``, ``remote``, ``remote_serve``,
-``federation`` and ``migrate``), the
+``federation``, ``migrate`` and ``mesh``), the
 line before the last is nvidia-smi's name and power limit, and the last
 line is
 
@@ -76,9 +88,11 @@ prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import random
+import shutil
 import subprocess
 import sys
 import threading
@@ -107,6 +121,15 @@ FREEZE_POOL = (17, 16)                     # frozen engine: blocks x block size
 FREEZE_NEW = 96                            # tokens of the frozen stream
 FREEZE_AT = 24                             # tokens streamed before the freeze
 FREEZE_S = 0.5                             # seconds the engine stays frozen
+MESH_RANKS = 4                             # ranks sharing the card over gloo
+MESH_AXES = {"fsdp": 2, "tp": 2}           # the sharded train step's mesh
+MESH_LAYERS, MESH_STEPS = 4, 3             # its depth and steps
+MESH_SHAPE = (4, 1024)                     # its batch x sequence
+RING_SEQ, RING_LAYERS = 8192, 2            # ring attention: tokens, Llama depth
+PIPE_MICRO, PIPE_SEQ = 8, 1024             # pipeline: microbatches of 1 x PIPE_SEQ
+MOE_BATCH = (8, 512)                       # MoE batch: overflows an expert
+MOE_CONFIG = {}                            # MoEConfig fields over its defaults
+BF16_REL = 2e-2                            # bf16 tolerance of the mesh checks
 
 
 def emit(phase: str, **fields) -> None:
@@ -1134,11 +1157,13 @@ def phase_remote_serve_check(torch, llama, remoting, serving, cfg):
          kv_ship_tokens_equal_generate=True, q8_tokens_equal_raw=True)
 
 
-def _train_batch(torch, vocab, shape, seed):
-    """Random tokens from ``seed``; the targets are the next tokens."""
-    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+def _train_batch(torch, vocab, shape, seed, device=None):
+    """Random tokens from ``seed`` on ``device`` (default DEVICE); the
+    targets are the next tokens."""
+    device = device or DEVICE
+    gen = torch.Generator(device=device).manual_seed(seed)
     b, t = shape
-    toks = torch.randint(0, vocab, (b, t + 1), generator=gen, device=DEVICE)
+    toks = torch.randint(0, vocab, (b, t + 1), generator=gen, device=device)
     return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
 
@@ -2073,6 +2098,439 @@ def phase_migrate(torch, ops, llama, remoting, serving, bench_train, limiter_lib
     return launches
 
 
+# -- the mesh: 4 ranks on the one card over gloo ------------------------------
+#
+# The rank bodies below run in the spawned ranks (parallel/launch.py), which
+# import this file by path, as __mp_main__, and call them by name.  Each
+# returns plain values; CUDA tensors stay in the rank.
+
+
+def _rank_env():
+    import torch
+    import torch.distributed as dist
+    from tensorfusion_tpu_torch import ops
+    from tensorfusion_tpu_torch.parallel import collectives
+
+    return torch, dist, ops, collectives
+
+
+def _synced(torch, dist):
+    """Every rank's queued work done, and every rank here."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dist.barrier()
+    return time.perf_counter()
+
+
+def _peak_gb(torch):
+    return torch.cuda.max_memory_allocated() / 1e9 if torch.cuda.is_initialized() else 0.0
+
+
+def _mesh_plan() -> dict:
+    """The mesh phase's knobs, passed to the rank bodies (a spawned rank
+    imports this file afresh)."""
+    return {"device": DEVICE, "ranks": MESH_RANKS, "axes": MESH_AXES, "steps": MESH_STEPS,
+            "shape": MESH_SHAPE, "ring_seq": RING_SEQ, "pipe_micro": PIPE_MICRO,
+            "pipe_seq": PIPE_SEQ, "moe_batch": MOE_BATCH,
+            "moe_config": MOE_CONFIG, "ckpt_dir": str(WORK / "mesh_ckpt")}
+
+
+def _one_rank_at_a_time(torch, dist, build):
+    """``build()`` on each rank in turn, its transient memory (a whole
+    tree before sharding) released before the next rank starts."""
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = build()
+            if torch.cuda.is_initialized():
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _nbytes(tree_leaves):
+    return sum(t.to_local().numel() * t.element_size() if hasattr(t, "to_local")
+               else t.numel() * t.element_size() for t in tree_leaves)
+
+
+def _mesh_rank_train(plan, cfg, seed, batch_seed):
+    """MESH_STEPS sharded AdamW steps (fsdp2 x tp2), then the checkpoint
+    contract: save, the uninterrupted next step, a fresh state restored
+    from the save and its next step."""
+    torch, dist, ops, collectives = _rank_env()
+    from tensorfusion_tpu_torch.models import Checkpointer, llama
+    from tensorfusion_tpu_torch.parallel import make_mesh
+
+    dev, ckpt_dir = plan["device"], plan["ckpt_dir"]
+    mesh = make_mesh(plan["axes"], device=dev)
+    params = _one_rank_at_a_time(torch, dist, lambda: llama.shard_params(llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev), mesh, cfg))
+    step, init_opt = llama.make_train_step(cfg, device=dev, mesh=mesh)
+    opt = init_opt(params)
+    batch = _train_batch(torch, cfg.vocab_size, plan["shape"], batch_seed, dev)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    collectives.STATS.reset()
+    losses, step_ms = [], []
+    for _ in range(plan["steps"]):
+        t0 = _synced(torch, dist)
+        params, opt, loss = step(params, opt, batch)
+        losses.append(loss.item())
+        step_ms.append((_synced(torch, dist) - t0) * 1e3)
+    launches = ops.launch_counts()
+    comm = collectives.STATS.as_dict()
+    peak_gb = _peak_gb(torch)
+
+    ck = Checkpointer(ckpt_dir, max_to_keep=1)
+    state_bytes = _nbytes(llama._leaves(params) + llama._leaves(opt["mu"])
+                          + llama._leaves(opt["nu"]))
+    t0 = _synced(torch, dist)
+    ck.save(plan["steps"], params, opt)
+    save_s = _synced(torch, dist) - t0
+    _, _, continued = step(params, opt, batch)
+    continued = continued.item()
+    del params, opt
+    fresh = _one_rank_at_a_time(torch, dist, lambda: llama.shard_params(llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed + 1), device=dev), mesh, cfg))
+    target = {"params": fresh, "opt_state": init_opt(fresh)}
+    t0 = _synced(torch, dist)
+    restored = ck.restore(target=target)
+    restore_s = _synced(torch, dist) - t0
+    count = int(restored["opt_state"]["count"])
+    _, _, resumed = step(restored["params"], restored["opt_state"], batch)
+    resumed = resumed.item()
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"losses": losses, "step_ms": step_ms, "launches": launches, "comm": comm,
+            "peak_memory_gb": peak_gb, "state_bytes": state_bytes, "save_s": save_s,
+            "restore_s": restore_s, "continued": continued, "resumed": resumed,
+            "restored_count": count}
+
+
+def _mesh_rank_ring(plan, seed):
+    """Ring attention over sp=4 on this rank's block of one causal
+    [1, 32, RING_SEQ, 128] bf16 sequence, forward and backward, then (rank
+    0) the flash kernels on the whole sequence for the check."""
+    torch, dist, ops, collectives = _rank_env()
+    from tensorfusion_tpu_torch.parallel import make_mesh, ring_attention
+    from tensorfusion_tpu_torch.parallel.collectives import all_gather_axes
+
+    dev, n, seq = plan["device"], plan["ranks"], plan["ring_seq"]
+    mesh = make_mesh({"sp": n}, device=dev)
+    i = mesh.get_local_rank("sp")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, w = (torch.randn((1, 32, seq, 128), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    tl = seq // n
+    ql, kl, vl = (x[:, :, i * tl:(i + 1) * tl].clone().requires_grad_(True)
+                  for x in (q, k, v))
+    wl = w[:, :, i * tl:(i + 1) * tl]
+    times = {}
+    for rep in range(2):            # the first call warms the allocator
+        collectives.STATS.reset()
+        t0 = _synced(torch, dist)
+        out = ring_attention(ql, kl, vl, mesh, "sp", causal=True)
+        t1 = _synced(torch, dist)
+        grads = torch.autograd.grad(out, (ql, kl, vl), grad_outputs=wl)
+        t2 = _synced(torch, dist)
+        times = {"fwd_ms": (t1 - t0) * 1e3, "bwd_ms": (t2 - t1) * 1e3,
+                 "staged_bytes": collectives.STATS.staged_bytes,
+                 "comm_s": collectives.STATS.seconds}
+    whole = [all_gather_axes(x.detach(), mesh, "sp", 2) for x in (out, *grads)]
+    res = {**times, "rank": dist.get_rank()}
+    if dist.get_rank() == 0:
+        from tensorfusion_tpu_torch.ops import flash_attention
+
+        qf, kf, vf = (x.clone().requires_grad_(True) for x in (q, k, v))
+        ref = flash_attention(qf, kf, vf, causal=True)
+        ref_grads = torch.autograd.grad(ref, (qf, kf, vf), grad_outputs=w)
+        res["out_max_abs_err"] = (whole[0].float() - ref.float()).abs().max().item()
+        res["grad_rel"] = [((g.float() - r.float()).abs().mean()
+                            / r.float().abs().mean()).item()
+                           for g, r in zip(whole[1:], ref_grads)]
+        res["finite"] = all(bool(torch.isfinite(x).all()) for x in whole)
+    return res
+
+
+def _mesh_rank_ring_llama(plan, cfg, seed, batch_seed):
+    """The loss of a 2-layer attn_impl="ring" model over sp=4."""
+    torch, dist, ops, collectives = _rank_env()
+    from tensorfusion_tpu_torch.models import llama
+    from tensorfusion_tpu_torch.parallel import make_mesh
+
+    dev = plan["device"]
+    mesh = make_mesh({"sp": plan["ranks"]}, device=dev)
+    params = _one_rank_at_a_time(torch, dist, lambda: llama.shard_params(llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev), mesh, cfg))
+    batch = _train_batch(torch, cfg.vocab_size, (1, plan["ring_seq"]), batch_seed, dev)
+    t0 = _synced(torch, dist)
+    with torch.no_grad():
+        loss = llama.loss_fn(params, batch, cfg, mesh).item()
+    return {"loss": loss, "ms": (_synced(torch, dist) - t0) * 1e3}
+
+
+def _mesh_rank_pipeline(plan, cfg, seed, x_seed):
+    """One 8B-width decoder layer a stage over pp=4, PIPE_MICRO
+    microbatches of 1 x 1024; then (rank 0) the four layers in order on
+    one device for the check."""
+    torch, dist, ops, collectives = _rank_env()
+    from torch.distributed.tensor import DTensor, Shard
+
+    from tensorfusion_tpu_torch.models import llama
+    from tensorfusion_tpu_torch.parallel import make_mesh, pipeline_apply
+
+    dev, n = plan["device"], plan["ranks"]
+    mesh = make_mesh({"pp": n}, device=dev)
+    rank = mesh.get_local_rank("pp")
+    one = dataclasses.replace(cfg, n_layers=1, vocab_size=8)   # a layer, no tables
+
+    def layer_of(stage):
+        gen = torch.Generator(device=dev).manual_seed(seed + stage)
+        return llama.init_params(one, gen, device=dev)["layers"][0]
+
+    stacked = torch.utils._pytree.tree_map(
+        lambda t: DTensor.from_local(t[None], mesh, [Shard(0)], run_check=False),
+        layer_of(rank))
+    xs = torch.randn((plan["pipe_micro"], 1, plan["pipe_seq"], cfg.dim),
+                     generator=torch.Generator(device=dev).manual_seed(x_seed),
+                     device=dev).to(cfg.dtype)
+    busy = [0.0]
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+
+    def stage(layer, x):
+        sync()
+        s0 = time.perf_counter()
+        y = llama._layer(cfg, layer, x)
+        sync()
+        busy[0] += time.perf_counter() - s0
+        return y
+
+    with torch.no_grad():
+        pipeline_apply(stage, stacked, xs, mesh)         # warm-up
+        busy[0] = 0.0
+        collectives.STATS.reset()
+        ops.reset_launch_counts()
+        t0 = _synced(torch, dist)
+        out = pipeline_apply(stage, stacked, xs, mesh)
+        wall = _synced(torch, dist) - t0
+        launches = ops.launch_counts()
+        res = {"wall_ms": wall * 1e3, "busy_ms": busy[0] * 1e3, "launches": launches,
+               "comm": collectives.STATS.as_dict()}
+        if dist.get_rank() == 0:
+            layers = [layer_of(s) for s in range(n)]
+            want = xs
+            for layer in layers:
+                want = torch.stack([llama._layer(cfg, layer, x) for x in want])
+            res["max_abs_err"] = (out.float() - want.float()).abs().max().item()
+            res["ref_max_abs"] = want.float().abs().max().item()
+            res["finite"] = bool(torch.isfinite(out).all())
+    return res
+
+
+def _mesh_rank_moe(plan, seed, tok_seed):
+    """The reference's default MoEConfig expert-parallel over ep=4, and
+    (rank 0) the same forward on one device for the check."""
+    torch, dist, ops, collectives = _rank_env()
+    from tensorfusion_tpu_torch.models import moe
+    from tensorfusion_tpu_torch.parallel import make_mesh
+
+    dev, batch = plan["device"], plan["moe_batch"]
+    cfg = moe.MoEConfig(**plan["moe_config"])
+    mesh = make_mesh({"ep": plan["ranks"]}, device=dev)
+    full = moe.init_moe_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                               device=dev)
+    params = moe.shard_moe_params(full, mesh, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, batch, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(tok_seed))
+    stats = {}
+    with torch.no_grad():
+        moe.moe_forward(params, tokens, cfg, mesh)           # warm-up
+        collectives.STATS.reset()
+        t0 = _synced(torch, dist)
+        logits = moe.moe_forward(params, tokens, cfg, mesh, stats=stats)
+        ms = (_synced(torch, dist) - t0) * 1e3
+        res = {"ms": ms, "dropped": stats["dropped"], "comm": collectives.STATS.as_dict(),
+               "config": {"dim": cfg.dim, "n_layers": cfg.n_layers,
+                          "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+                          "capacity": cfg.capacity(batch[0] * batch[1])}}
+        if dist.get_rank() == 0:
+            ref_stats = {}
+            ref = moe.moe_forward(full, tokens, cfg, stats=ref_stats)
+            res["ref_dropped"] = ref_stats["dropped"]
+            res["max_abs_err"] = (logits - ref).abs().max().item()
+            res["ref_max_abs"] = ref.abs().max().item()
+            res["bit_equal"] = bool(torch.equal(logits, ref))
+            res["finite"] = bool(torch.isfinite(logits).all())
+    return res
+
+
+def _one_device_train_losses(torch, llama, cfg, seed, batch_seed):
+    params = llama.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                               device=DEVICE)
+    step, init_opt = llama.make_train_step(cfg, device=DEVICE)
+    opt = init_opt(params)
+    batch = _train_batch(torch, cfg.vocab_size, MESH_SHAPE, batch_seed)
+    losses = []
+    for _ in range(MESH_STEPS):
+        params, opt, loss = step(params, opt, batch)
+        losses.append(loss.item())
+    return losses
+
+
+def _one_device_loss(torch, llama, cfg, seed, batch_seed):
+    params = llama.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                               device=DEVICE)
+    batch = _train_batch(torch, cfg.vocab_size, (1, RING_SEQ), batch_seed)
+    with torch.no_grad():
+        return llama.loss_fn(params, batch, cfg).item()
+
+
+def _close(a, b, rel=BF16_REL) -> bool:
+    return abs(a - b) <= rel * abs(b)
+
+
+def phase_mesh(torch, ops, llama, parallel, cfg, smi):
+    """The multi-device layer at Llama-3-8B width: MESH_RANKS ranks share
+    the one card over gloo (NCCL refuses two ranks on one card), spawned
+    once and kept for every step.  Returns the flash launches of the
+    path's runs (the sharded train steps and the pipeline), summed over
+    the ranks; the one-device references and checks launch outside them."""
+    from tensorfusion_tpu_torch.parallel import collectives
+
+    t_phase = time.perf_counter()
+    # the earlier phases' engines and workers may sit in reference cycles
+    # that still hold their weights and graph pools: the ranks need the card
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = _mesh_plan()
+    cfg4 = dataclasses.replace(cfg, n_layers=MESH_LAYERS)
+    cfg2 = dataclasses.replace(cfg, n_layers=RING_LAYERS)
+    # the one-device references first, so the ranks find the card free
+    ref_losses = _one_device_train_losses(torch, llama, cfg4, 21, 22)
+    ref_ring_loss = _one_device_loss(torch, llama, cfg2, 23, 24)
+    torch.cuda.empty_cache()
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    emit("mesh_backend", backend="gloo", ranks=MESH_RANKS, device="cuda:0, shared",
+         parent_allocated_gb={"before_gc": held_gb,
+                              "now": torch.cuda.memory_allocated() / 1e9},
+         card_free_gb=free_gb,
+         host_staged_ops=sorted(collectives.HOST_STAGED["gloo"]),
+         note="gloo moves CUDA tensors through the host: collective times here "
+              "say nothing about NVLink", nvidia_smi=smi)
+    launches = {k.name: 0 for k in ops.KERNELS}
+    t0 = time.perf_counter()
+    with parallel.RankGroup(MESH_RANKS, device=DEVICE, backend="gloo",
+                            timeout_s=900) as ranks:
+        spawn_s = time.perf_counter() - t0
+
+        # 1 and 6: the sharded train step, then the checkpoint
+        train = ranks.run(_mesh_rank_train, plan, cfg4, 21, 22)
+        for res in train:
+            for name, n in res["launches"].items():
+                launches[name] += n
+        step_ms = [max(r["step_ms"][i] for r in train) for i in range(MESH_STEPS)]
+        losses = train[0]["losses"]
+        emit("mesh_train", axes=MESH_AXES, n_layers=MESH_LAYERS, batch=MESH_SHAPE[0],
+             seq=MESH_SHAPE[1], attn_impl=cfg.attn_impl, dtype=str(cfg.dtype),
+             losses=losses, one_device_losses=ref_losses,
+             loss_rel=[abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)],
+             rule=f"|loss - one device| <= {BF16_REL} x |one device| a step",
+             step_ms=step_ms, tokens_per_s=MESH_SHAPE[0] * MESH_SHAPE[1]
+             / (sum(step_ms[1:]) / (MESH_STEPS - 1) / 1e3),
+             peak_memory_gb_per_rank=[r["peak_memory_gb"] for r in train],
+             collective_bytes_per_rank=[r["comm"]["bytes"] for r in train],
+             collective_s_per_rank=[r["comm"]["seconds"] for r in train],
+             collective_ops_per_rank=[r["comm"]["ops"] for r in train],
+             flash_launches_per_rank=[r["launches"] for r in train], nvidia_smi=smi)
+        if any(r["losses"] != losses for r in train):
+            raise RuntimeError("ranks disagree on the sharded loss")
+        if not all(_close(a, b) for a, b in zip(losses, ref_losses)):
+            raise RuntimeError(f"sharded losses {losses} differ from one device's "
+                               f"{ref_losses}")
+        want = MESH_LAYERS * MESH_STEPS
+        if any(n != want for r in train for n in r["launches"].values()):
+            raise RuntimeError(f"flash kernels ran {[r['launches'] for r in train]} "
+                               f"times a rank, not {want}")
+        gb = sum(r["state_bytes"] for r in train) / 1e9
+        emit("mesh_checkpoint", step=MESH_STEPS, state_gb=gb,
+             save_gb_s=gb / max(r["save_s"] for r in train),
+             restore_gb_s=gb / max(r["restore_s"] for r in train),
+             continued=[r["continued"] for r in train],
+             resumed=[r["resumed"] for r in train],
+             restored_count=train[0]["restored_count"], nvidia_smi=smi)
+        if any(r["resumed"] != r["continued"] for r in train) \
+                or train[0]["restored_count"] != MESH_STEPS:
+            raise RuntimeError("the restored state's step differs from the "
+                               "uninterrupted one")
+
+        # 2: ring attention against the flash kernels on the whole sequence
+        ring = ranks.run(_mesh_rank_ring, plan, 25)
+        r0 = ring[0]
+        emit("mesh_ring", sp=MESH_RANKS, batch=1, seq=RING_SEQ, heads=32, head_dim=128,
+             causal=True, dtype="bf16", out_max_abs_err=r0["out_max_abs_err"],
+             grad_rel=dict(zip(("dq", "dk", "dv"), r0["grad_rel"])),
+             rule=f"out max|err| < {BF16_REL}; grads mean|err|/mean|ref| < {BF16_REL}",
+             fwd_ms=max(r["fwd_ms"] for r in ring), bwd_ms=max(r["bwd_ms"] for r in ring),
+             host_staged_bytes_per_rank=[r["staged_bytes"] for r in ring],
+             collective_s_per_rank=[r["comm_s"] for r in ring], nvidia_smi=smi)
+        if not (r0["finite"] and r0["out_max_abs_err"] < BF16_REL
+                and max(r0["grad_rel"]) < BF16_REL):
+            raise RuntimeError(f"ring attention disagrees with the flash kernels: {r0}")
+
+        # 3: Llama with attn_impl="ring" against the one-device flash loss
+        ring_cfg = dataclasses.replace(cfg2, attn_impl="ring")
+        rl = ranks.run(_mesh_rank_ring_llama, plan, ring_cfg, 23, 24)
+        emit("mesh_ring_llama", sp=MESH_RANKS, n_layers=RING_LAYERS, seq=RING_SEQ,
+             loss=rl[0]["loss"], one_device_flash_loss=ref_ring_loss,
+             loss_rel=abs(rl[0]["loss"] - ref_ring_loss) / abs(ref_ring_loss),
+             rule=f"|loss - one device| <= {BF16_REL} x |one device|",
+             ms=max(r["ms"] for r in rl), nvidia_smi=smi)
+        if len({r["loss"] for r in rl}) != 1 or not _close(rl[0]["loss"], ref_ring_loss):
+            raise RuntimeError(f"ring Llama loss {[r['loss'] for r in rl]} against "
+                               f"one device's {ref_ring_loss}")
+
+        # 4: the pipeline against the sequential composition
+        pipe = ranks.run(_mesh_rank_pipeline, plan, cfg, 26, 27)
+        for res in pipe:
+            for name, n in res["launches"].items():
+                launches[name] += n
+        ticks = PIPE_MICRO + MESH_RANKS - 1
+        wall = max(r["wall_ms"] for r in pipe)
+        p0 = pipe[0]
+        emit("mesh_pipeline", pp=MESH_RANKS, microbatches=PIPE_MICRO,
+             microbatch=[1, PIPE_SEQ], ticks=ticks, wall_ms=wall, tick_ms=wall / ticks,
+             bubble_share=1 - sum(r["busy_ms"] for r in pipe) / (MESH_RANKS * wall),
+             schedule_bubble_share=(MESH_RANKS - 1) / ticks,
+             max_abs_err=p0["max_abs_err"], ref_max_abs=p0["ref_max_abs"],
+             rule=f"max|err| <= {BF16_REL} x max|sequential|",
+             collective_bytes_per_rank=[r["comm"]["bytes"] for r in pipe],
+             flash_launches_per_rank=[r["launches"]["flash_attn_fwd"] for r in pipe],
+             nvidia_smi=smi)
+        if not (p0["finite"] and p0["max_abs_err"] <= BF16_REL * p0["ref_max_abs"]):
+            raise RuntimeError(f"pipeline disagrees with the sequential layers: {p0}")
+
+        # 5: the expert-parallel MoE against one device
+        moe_res = ranks.run(_mesh_rank_moe, plan, 28, 29)
+        m0 = moe_res[0]
+        emit("mesh_moe", ep=MESH_RANKS, batch=list(MOE_BATCH),
+             **m0["config"], dropped=m0["dropped"], one_device_dropped=m0["ref_dropped"],
+             max_abs_err=m0["max_abs_err"], ref_max_abs=m0["ref_max_abs"],
+             bit_equal=m0["bit_equal"], rule=f"dropped equal and > 0; max|err| <= "
+             f"{BF16_REL} x max|one device|", ms=max(r["ms"] for r in moe_res),
+             collective_bytes_per_rank=[r["comm"]["bytes"] for r in moe_res],
+             nvidia_smi=smi)
+        if not (m0["finite"] and m0["dropped"] == m0["ref_dropped"] > 0
+                and m0["max_abs_err"] <= BF16_REL * m0["ref_max_abs"]):
+            raise RuntimeError(f"expert-parallel MoE disagrees with one device: {m0}")
+    emit("mesh_done", spawn_s=spawn_s, seconds=time.perf_counter() - t_phase,
+         launches=launches)
+    return launches
+
+
 def phase_bench_train(bench_train, limiter_lib):
     """The metered train-step bench at its own configuration."""
     result = bench_train.run(limiter_lib=str(limiter_lib))
@@ -2093,7 +2551,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from tensorfusion_tpu_torch import bench_train, hardware, ops, remoting, serving
+    from tensorfusion_tpu_torch import (bench_train, hardware, ops, parallel, remoting,
+                                        serving)
     from tensorfusion_tpu_torch.client.runtime import estimate_flops
     from tensorfusion_tpu_torch.models import llama
     from tensorfusion_tpu_torch.ops import _build as build
@@ -2130,6 +2589,8 @@ def main() -> int:
     phase_train_check(torch, llama, params, cfg)
     del params
     torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(torch, ops, llama, parallel, cfg, smi)
+    torch.cuda.empty_cache()
     remote_launches = phase_remote(torch, ops, llama, remoting, estimate_flops,
                                    bench_train, limiter_lib, cfg, smi)
     torch.cuda.empty_cache()
@@ -2150,14 +2611,15 @@ def main() -> int:
                 "launches": serve_launches[k.name] + train_launches[k.name]
                 + engine_launches[k.name] + remote_launches[k.name]
                 + remote_serve_launches[k.name] + fed_launches[k.name]
-                + mig_launches[k.name],
+                + mig_launches[k.name] + mesh_launches[k.name],
                 "launches_by_path": {"serve": serve_launches[k.name],
                                      "train": train_launches[k.name],
                                      "engine": engine_launches[k.name],
                                      "remote": remote_launches[k.name],
                                      "remote_serve": remote_serve_launches[k.name],
                                      "federation": fed_launches[k.name],
-                                     "migrate": mig_launches[k.name]},
+                                     "migrate": mig_launches[k.name],
+                                     "mesh": mesh_launches[k.name]},
                 **{key: rows[k.name][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "plain", "library", "pair_ms")

@@ -767,3 +767,92 @@ def test_migration_between_cuda_workers_executes_bit_equal(gen):
             d.close()
         for w in (src, tgt):
             w.stop()
+
+
+# -- the mesh: ranks share the one card over gloo --------------------------------
+
+
+@pytest.fixture(scope="module")
+def cuda_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensorfusion_tpu_torch.parallel import RankGroup
+
+    with RankGroup(4, device="cuda", backend="gloo", timeout_s=600) as group:
+        yield group
+
+
+def _mesh_cfg():
+    return dataclasses.replace(llama.LlamaConfig.tiny("flash"), dim=256, n_heads=4,
+                               n_kv_heads=2, ffn_dim=512, vocab_size=512,
+                               dtype=torch.bfloat16)
+
+
+def test_sharded_train_step_on_one_card_over_gloo(cuda_ranks):
+    """fsdp2 x tp2 on four ranks of cuda:0: the flash kernels run on each
+    rank's local heads, and the losses follow one device's (bf16)."""
+    import torch_rank_tasks as tasks
+
+    cfg = _mesh_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 129), generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                               device="cuda")
+    step, init_opt = llama.make_train_step(cfg, device="cuda")
+    opt = init_opt(params)
+    want = [float(step(params, opt, batch)[2]) for _ in range(2)]
+    got = cuda_ranks.run(tasks.gpu_train_losses, {"fsdp": 2, "tp": 2}, cfg, 0,
+                         {k: v.cpu() for k, v in batch.items()}, 2)
+    for res in got:
+        assert res["launches"] == {k.name: cfg.n_layers * 2 for k in ops.KERNELS}
+        for a, b in zip(res["losses"], want):
+            assert abs(a - b) <= 2e-2 * abs(b), (res["losses"], want)
+
+
+def test_ring_attention_on_one_card_matches_the_flash_kernels(cuda_ranks):
+    import torch_rank_tasks as tasks
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, w = (torch.randn((1, 4, 1024, 64), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    qf, kf, vf = (x.clone().requires_grad_(True) for x in (q, k, v))
+    ref = flash_attention(qf, kf, vf, causal=True)
+    ref_grads = torch.autograd.grad(ref, (qf, kf, vf), grad_outputs=w)
+    got = cuda_ranks.run(tasks.gpu_ring, {"sp": 4}, q.cpu(), k.cpu(), v.cpu(), w.cpu())
+    for out, *grads in got:
+        assert (out.float() - ref.cpu().float()).abs().max().item() < 2e-2
+        for g, r in zip(grads, ref_grads):
+            r = r.cpu().float()
+            assert ((g.float() - r).abs().mean() / r.abs().mean()).item() < 2e-2
+
+
+def test_expert_parallel_moe_on_one_card_matches_one_device(cuda_ranks):
+    import torch_rank_tasks as tasks
+    from tensorfusion_tpu_torch.models import moe
+
+    cfg = dataclasses.replace(moe.MoEConfig.tiny(n_experts=8), capacity_factor=0.5,
+                              dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64),
+                           generator=torch.Generator(device="cuda").manual_seed(3),
+                           device="cuda")
+    params = moe.init_moe_params(cfg, torch.Generator(device="cuda").manual_seed(4),
+                                 device="cuda")
+    stats = {}
+    with torch.no_grad():
+        want = moe.moe_forward(params, tokens, cfg, stats=stats).cpu()
+    got = cuda_ranks.run(tasks.gpu_moe, {"ep": 4}, cfg, 4, tokens.cpu())
+    assert stats["dropped"] > 0
+    for res in got:
+        assert res["dropped"] == stats["dropped"]
+        err = (res["logits"] - want).abs().max().item()
+        assert err <= 2e-2 * want.abs().max().item(), err
+
+
+def test_nccl_with_more_ranks_than_cards_raises():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensorfusion_tpu_torch.parallel import RankGroup
+
+    with pytest.raises(ValueError, match="one card a rank"):
+        RankGroup(torch.cuda.device_count() + 1, device="cuda", backend="nccl")
