@@ -5,13 +5,28 @@ NVIDIA H100.
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one Hopper card, nvcc
-and make.  It builds the kernels (flash forward, flash backward) and
-libtpf_limiter.so from the checkout (failing if ptxas reports a spill),
-holds every kernel against its plain PyTorch version on the card and
-times it at the main path's shape and at a long one, then drives the
-port's eight paths at Llama-3-8B width (random weights from fixed seeds),
+and make.  It builds the kernels (flash forward, flash backward),
+libtpf_limiter.so, the reference's provider_conformance and the port's
+NVML provider from the checkout (failing if ptxas reports a spill, or if
+the provider's hand-declared NVML types disagree with the toolkit's
+nvml.h), holds every kernel against its plain PyTorch version on the card
+and times it at the main path's shape and at a long one, then drives the
+port's nine paths at Llama-3-8B width (random weights from fixed seeds),
 each with the kernel launch counts set to 0 just before it and read just
 after:
+
+- the node agent (first, while this process holds almost nothing):
+  provider_conformance against the NVML provider over the real NVML; the
+  port's hypervisor daemon (``python -m tensorfusion_tpu_torch.hypervisor``)
+  over it, its inventory against torch and nvidia-smi; two soft tenants
+  (``default/lo`` at 25% duty, QoS low; ``default/hi`` at 75%, QoS high)
+  submitted through its API and spawned by its single-node backend, each
+  ``python3 chip_smoke.py --tenant DIR``: Llama-3-8B at 32 layers, the
+  first metered forward bit-equal to an unmetered one, then the metered
+  forward on 4 x 1024 tokens in a loop under the 10 Hz ERL loop, while
+  both segments are sampled; ``hi`` frozen for 3 s and resumed; every
+  call charged, the token-bucket bound, and nothing left after DELETE.
+  Its launches are the tenants' own;
 
 - serving: greedy ``generate`` requests, 32 layers, through the metered
   client;
@@ -75,7 +90,7 @@ train-step bench (``tensorfusion_tpu_torch.bench_train``).  Each phase
 prints one JSON line; any failure raises and exits non-zero.  The line
 before the last two is the kernel table (its ``launches_by_path`` has
 ``serve``, ``engine``, ``train``, ``remote``, ``remote_serve``,
-``federation``, ``migrate`` and ``mesh``), the
+``federation``, ``migrate``, ``mesh`` and ``node``), the
 line before the last is nvidia-smi's name and power limit, and the last
 line is
 
@@ -130,6 +145,15 @@ PIPE_MICRO, PIPE_SEQ = 8, 1024             # pipeline: microbatches of 1 x PIPE_
 MOE_BATCH = (8, 512)                       # MoE batch: overflows an expert
 MOE_CONFIG = {}                            # MoEConfig fields over its defaults
 BF16_REL = 2e-2                            # bf16 tolerance of the mesh checks
+NODE_TENANTS = (("lo", 25.0, "low"), ("hi", 75.0, "high"))  # pod, duty %, QoS
+NODE_SHAPE = (4, 1024)                     # a tenant's forward: batch x tokens
+NODE_SEED = 13                             # the tenants' weights and tokens
+NODE_HBM_BYTES = 30 << 30                  # a tenant's device-memory budget
+NODE_WINDOW_S = 40.0                       # sampling window after both start
+NODE_SAMPLE_S = 0.1                        # segment sampling period
+NODE_FREEZE_AT_S, NODE_FREEZE_S = 20.0, 3.0  # hi frozen from, for (s)
+NODE_START_TIMEOUT_S = 300.0               # tenants' weights built, first call
+NODE_TOKEN = "chip-smoke-node"             # the daemon's API token
 
 
 def emit(phase: str, **fields) -> None:
@@ -169,13 +193,15 @@ def phase_device(torch, build, hardware):
     return name, smi
 
 
-def phase_build(torch, build, fa):
-    """The kernels (one nvcc each, in parallel) and the limiter, together;
-    then what each kernel holds (ptxas, dynamic shared memory) and what a
-    launch's tensor maps cost on the host."""
+def phase_build(torch, build, fa, hv_build):
+    """The kernels (one nvcc each, in parallel), the limiter and the
+    provider conformance check, together; the NVML provider, and its NVML
+    declarations held against the toolkit's nvml.h; then what each kernel
+    holds (ptxas, dynamic shared memory) and what a launch's tensor maps
+    cost on the host."""
     t0 = time.perf_counter()
     make = subprocess.Popen(["make", "-C", str(REPO / "native"),
-                             "build/libtpf_limiter.so"],
+                             "build/libtpf_limiter.so", "build/provider_conformance"],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     limiter = {}
@@ -187,15 +213,21 @@ def phase_build(torch, build, fa):
     waiter = threading.Thread(target=wait_make)
     waiter.start()
     try:
+        t_provider = time.perf_counter()
+        provider_lib = hv_build.provider_path()
+        nvml_header = hv_build.check_nvml_layout()
+        provider_s = time.perf_counter() - t_provider
         kernel_s = build.build_all()
     finally:
         waiter.join()
     if make.returncode != 0:
-        raise RuntimeError(f"libtpf_limiter.so did not build:\n{limiter['log']}")
+        raise RuntimeError(f"the limiter or provider_conformance did not build:\n"
+                           f"{limiter['log']}")
     ptxas = {n: build.ptxas_summary(build.ptxas_report(n)) for n in build.SOURCES}
     spills = {f"{n}: {k}": v["spill_bytes"] for n, kernels in ptxas.items()
               for k, v in kernels.items() if v["spill_bytes"]}
-    emit("build", kernels_s=kernel_s, limiter_s=limiter["s"],
+    emit("build", kernels_s=kernel_s, limiter_s=limiter["s"], provider_s=provider_s,
+         nvml_provider=str(provider_lib.relative_to(REPO)), nvml_header=str(nvml_header),
          libraries=[str(build.library_path(n).relative_to(REPO))
                     for n in build.SOURCES], ptxas=ptxas,
          dynamic_smem_bf16=_dynamic_smem(fa),
@@ -2531,6 +2563,435 @@ def phase_mesh(torch, ops, llama, parallel, cfg, smi):
     return launches
 
 
+# -- the node agent: two metered tenants under the port's hypervisor ----------
+
+
+def tenant_main(out: Path) -> int:
+    """One tenant of ``phase_node``, spawned by the hypervisor's single-node
+    backend with its allocation env: attach the metering client from that
+    env, build Llama-3-8B (bf16, flash, seeded random weights), check one
+    metered forward bit for bit against an unmetered one, then loop the
+    metered forward until terminated, a JSON line per call in
+    ``out/calls.jsonl``."""
+    import os
+
+    out.mkdir(parents=True, exist_ok=True)
+    # the backend gives its workers no stdout: keep the tenant's own log
+    log = open(out / "tenant.log", "a", buffering=1)
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from tensorfusion_tpu_torch import ops
+    from tensorfusion_tpu_torch.client.runtime import VTPUClient, estimate_flops
+    from tensorfusion_tpu_torch.models import llama
+
+    calls = open(out / "calls.jsonl", "a", buffering=1)
+
+    def record(**fields):
+        calls.write(json.dumps(fields) + "\n")
+
+    record(start=os.getpid(), t=time.monotonic())
+    client = VTPUClient(device=DEVICE)
+    if not client.attached:
+        raise RuntimeError("the tenant found no limiter segment: it would run unmetered")
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attn_impl="flash")
+    gen = torch.Generator(device=DEVICE).manual_seed(NODE_SEED)
+    params = llama.init_params(cfg, gen, device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab_size, NODE_SHAPE, generator=gen, device=DEVICE)
+    forward = client.meter(llama.forward)
+    want = llama.forward(params, tokens, cfg)
+    got = forward(params, tokens, cfg)
+    equal = torch.equal(got, want)
+    del want, got
+    # the client's estimate of one call, as its meter computes it
+    per_call = max(int(estimate_flops(llama.forward, (params, tokens, cfg), {}) / 1e6), 1)
+    record(check={"bit_equal": equal, "mflop_per_call": per_call,
+                  "config": {"dim": cfg.dim, "n_layers": cfg.n_layers,
+                             "dtype": str(cfg.dtype), "attn_impl": cfg.attn_impl},
+                  "shape": list(NODE_SHAPE)})
+    if not equal:
+        raise RuntimeError("a metered forward differs from an unmetered one")
+    while True:
+        t0 = time.monotonic()
+        logits = forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        del logits
+        record(t0=t0, t1=t1, launches=client.launches, mflop=client.charged_mflops,
+               flash=ops.launch_counts()["flash_attn_fwd"],
+               blocked_s=client.blocked_time_s)
+
+
+def _tenant_lines(out: Path):
+    path = out / "calls.jsonl"
+    if not path.exists():
+        return []
+    lines = []
+    for line in path.read_text().splitlines():
+        try:
+            lines.append(json.loads(line))
+        except ValueError:       # a line cut by the tenant's termination
+            pass
+    return lines
+
+
+def _api(url, path, method="GET", body=None, token=NODE_TOKEN, timeout=30):
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + path, method=method, headers={"X-TPF-Token": token,
+                                            "Content-Type": "application/json"},
+        data=json.dumps(body).encode() if body is not None else None)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _conformance(provider_lib):
+    """The reference's compiled ABI check against the NVML provider."""
+    r = subprocess.run([str(REPO / "native" / "build" / "provider_conformance"),
+                        str(provider_lib)], capture_output=True, text=True, timeout=120)
+    if r.returncode != 0 or "PASS" not in r.stdout:
+        raise RuntimeError(f"provider_conformance failed (exit {r.returncode}):\n"
+                           f"{r.stdout}{r.stderr}")
+    return r.stdout.strip()
+
+
+def _start_daemon(provider_lib, limiter_lib, work):
+    port_file = work / "port"
+    log = open(work / "daemon.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tensorfusion_tpu_torch.hypervisor",
+         "--provider", str(provider_lib), "--limiter", str(limiter_lib),
+         "--shm-base", str(work / "shm"), "--state-dir", str(work / "state"),
+         "--snapshot-dir", str(work / "snap"), "--port", "0",
+         "--port-file", str(port_file), "--api-token", NODE_TOKEN],
+        cwd=str(REPO), stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            break
+        if port_file.exists() and port_file.read_text().strip():
+            url = f"http://127.0.0.1:{port_file.read_text().strip()}"
+            try:
+                if _api(url, "/healthz", token="")["ok"]:
+                    return proc, url
+            except OSError:
+                pass
+        time.sleep(0.2)
+    proc.kill()
+    proc.wait()
+    raise RuntimeError("the hypervisor did not come up:\n"
+                       + (work / "daemon.log").read_text()[-3000:])
+
+
+def _stop(proc, timeout=30):
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _node_inventory(torch, hardware, provider, url, name, smi):
+    """/api/v1/devices, /node and /topology against torch and nvidia-smi;
+    the device's name is not a field of the provider ABI's chip info, so
+    it is read from the provider's partition template ("<name> whole
+    card")."""
+    devs = _api(url, "/api/v1/devices")
+    node = _api(url, "/api/v1/node")
+    topo = _api(url, "/api/v1/topology")
+    rates = hardware.peak_rates(name)
+    total = torch.cuda.get_device_properties(0).total_memory
+    info, metrics = devs[0]["info"], devs[0]["metrics"]
+    template = provider.partition_templates(info["chip_id"])[0].name
+    limit_w = float(smi.split(",")[-1].strip().split()[0])
+    checks = {
+        "count": len(devs) == torch.cuda.device_count() == node["chip_count"],
+        "name": template == f"{name} whole card",
+        "hbm_within_1pct": abs(info["hbm_bytes"] - total) <= 0.01 * total,
+        "peak_bf16": info["peak_bf16_tflops"] * 1e12 == rates["bf16"],
+        "peak_int8": info["peak_int8_tops"] * 1e12 == rates["int8"],
+        "hbm_gbps": info["hbm_gbps"] * 1e9 == rates["bytes"],
+        "power_and_temp": metrics["power_watts"] > 0 and metrics["temp_celsius"] > 0,
+        "power_limit_w": abs(metrics["extra"]["power_limit_w"] - limit_w) < 0.5,
+        "platform": info["platform"] == "gpu",
+        "topology_self": [l["kind"] for l in topo["links"][info["chip_id"]]] == ["self"],
+    }
+    inventory = {"chip_id": info["chip_id"], "generation": info["generation"],
+                 "template": template, "hbm_bytes": info["hbm_bytes"],
+                 "torch_total_memory": total, "peak_bf16_tflops": info["peak_bf16_tflops"],
+                 "peak_int8_tops": info["peak_int8_tops"], "hbm_gbps": info["hbm_gbps"],
+                 "numa_node": info["numa_node"], "driver": info["driver_version"],
+                 "power_watts": metrics["power_watts"], "temp_celsius": metrics["temp_celsius"],
+                 "power_limit_w": metrics["extra"]["power_limit_w"],
+                 "mesh_shape": topo["mesh_shape"], "checks": checks}
+    if not all(checks.values()):
+        raise RuntimeError(f"the hypervisor's inventory disagrees with torch: {inventory}")
+    return info["chip_id"], inventory
+
+
+def _bucket_bound(samples, per_call):
+    """The most a tenant's bucket can admit over the sampled window, from
+    limiter.cc's rule: a charge is admitted only from tokens, and tokens
+    grow only by refill credits (elapsed time x the refill rate in force at
+    the refill, capped at the capacity).  So the charges between the first
+    and the last sample are at most the tokens at the first sample, plus
+    the credit pending then (since the segment's last refill), plus each
+    sample interval at the larger of its two sampled rates; one call's
+    charge covers a rate that lived between two samples."""
+    first = samples[0]
+    bound = first["tokens"] + per_call
+    rate0 = max(samples[0]["refill"], samples[1]["refill"])
+    bound += rate0 * max(0.0, first["t"] - first["last_refill_us"] / 1e6)
+    for a, b in zip(samples, samples[1:]):
+        bound += max(a["refill"], b["refill"]) * (b["t"] - a["t"])
+    return bound
+
+
+def _settle_s(series):
+    """Seconds until a (t, value) series stays within 5% of its last value."""
+    last = series[-1][1]
+    t_settled = series[0][0]
+    for t, v in series:
+        if abs(v - last) > 0.05 * abs(last):
+            t_settled = t
+    return t_settled - series[0][0]
+
+
+def _read_segment(view):
+    state = view.read()
+    d = state.devices[0]
+    return {"t": time.monotonic(), "tokens": d.tokens_mflop, "capacity": d.capacity_mflop,
+            "refill": d.refill_mflop_per_s, "last_refill_us": d.last_refill_us,
+            "charged": d.total_charged_mflop, "launches": d.launches,
+            "blocked": d.blocked_events, "pod_hbm": d.pod_hbm_used_bytes,
+            "pids": list(state.pids), "frozen": state.frozen}
+
+
+def _node_wait_for_calls(tenants, daemon):
+    """Until each tenant has made its first call of the loop."""
+    deadline = time.monotonic() + NODE_START_TIMEOUT_S
+    while True:
+        ready = True
+        for pod, t in tenants.items():
+            lines = _tenant_lines(t["out"])
+            if sum("start" in l for l in lines) > 1 or daemon.poll() is not None:
+                raise RuntimeError(f"tenant {pod} restarted or the hypervisor died:\n"
+                                   + _tail(t["out"] / "tenant.log"))
+            ready &= any("t1" in l for l in lines)
+        if ready:
+            return
+        if time.monotonic() > deadline:
+            raise RuntimeError("the tenants made no call in time:\n" + "\n".join(
+                f"{pod}: " + _tail(t["out"] / "tenant.log") for pod, t in tenants.items()))
+        time.sleep(0.5)
+
+
+def _tail(path, n=3000):
+    return path.read_text()[-n:] if path.exists() else f"<no {path.name}>"
+
+
+def _node_window(url, provider, tenants):
+    """NODE_WINDOW_S of samples: both segments every NODE_SAMPLE_S, the
+    API's workers and devices and NVML's processes every second; ``hi``
+    frozen from NODE_FREEZE_AT_S for NODE_FREEZE_S."""
+    t_start = time.monotonic()
+    samples, api_samples, freeze = [], [], {}
+    next_api = t_start
+    while True:
+        now = time.monotonic()
+        if now >= t_start + NODE_WINDOW_S:
+            break
+        samples.append({pod: _read_segment(t["view"]) for pod, t in tenants.items()})
+        if "t_freeze" not in freeze and now >= t_start + NODE_FREEZE_AT_S:
+            _api(url, "/api/v1/workers/default/hi/freeze", "POST", {})
+            freeze["t_freeze"] = time.monotonic()
+            freeze["launches_at_freeze"] = _read_segment(tenants["hi"]["view"])["launches"]
+        elif "t_resume" not in freeze and "t_freeze" in freeze \
+                and now >= freeze["t_freeze"] + NODE_FREEZE_S:
+            freeze["launches_at_resume"] = _read_segment(tenants["hi"]["view"])["launches"]
+            _api(url, "/api/v1/workers/default/hi/resume", "POST", {})
+            freeze["t_resume"] = time.monotonic()
+        if now >= next_api:
+            api_samples.append({
+                "t": now, "workers": _api(url, "/api/v1/workers"),
+                "devices": _api(url, "/api/v1/devices"),
+                "nvml_procs": [(p.pid, p.duty_cycle_pct, p.hbm_used_bytes)
+                               for p in provider.proc_stats()]})
+            next_api += 1.0
+        time.sleep(max(0.0, NODE_SAMPLE_S - (time.monotonic() - now)))
+    return t_start, time.monotonic(), samples, api_samples, freeze
+
+
+def _node_drain(url, tenants):
+    """Freeze both tenants and wait until each has been refused a charge
+    since: a tenant charges only between calls, after writing the record
+    of the last, so then the segments and the tenants' records describe
+    the same calls."""
+    for pod in tenants:
+        _api(url, f"/api/v1/workers/default/{pod}/freeze", "POST", {})
+    blocked0 = {pod: _read_segment(t["view"])["blocked"] for pod, t in tenants.items()}
+    deadline = time.monotonic() + 120
+    while True:
+        final = {}
+        for pod, t in tenants.items():
+            seg = _read_segment(t["view"])
+            if seg["blocked"] > blocked0[pod]:
+                final[pod] = {"segment": seg, "lines": _tenant_lines(t["out"])}
+        if len(final) == len(tenants):
+            return final
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"the tenants did not settle frozen: {final.keys()}")
+        time.sleep(0.2)
+
+
+def phase_node(torch, hardware, hv_build, limiter_lib, name, smi):
+    """The node agent on the card: conformance of the NVML provider, the
+    port's hypervisor daemon over it, and two soft tenants (``default/lo``
+    at 25% duty, QoS low; ``default/hi`` at 75%, QoS high) spawned by its
+    single-node backend, each looping the metered Llama-3-8B forward under
+    the 10 Hz ERL loop, ``hi`` frozen for NODE_FREEZE_S mid-window.
+    Returns the tenants' kernel launches."""
+    from tensorfusion_tpu_torch.hypervisor import (Provider, ShmView,
+                                                   list_worker_segments)
+
+    t_phase = time.perf_counter()
+    work = WORK / "node"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    provider_lib = hv_build.provider_path()
+    conformance = _conformance(provider_lib)
+    provider = Provider(str(provider_lib))
+    provider.init()
+    daemon, url = _start_daemon(provider_lib, limiter_lib, work)
+    tenants = {}
+    try:
+        chip, inventory = _node_inventory(torch, hardware, provider, url, name, smi)
+        for pod, duty, qos in NODE_TENANTS:
+            out = work / "tenants" / pod
+            spec = {"namespace": "default", "name": pod, "isolation": "soft", "qos": qos,
+                    "devices": [{"chip_id": chip, "duty_percent": duty,
+                                 "hbm_bytes": NODE_HBM_BYTES}],
+                    "command": [sys.executable, str(REPO / "chip_smoke.py"),
+                                "--tenant", str(out)]}
+            env = _api(url, "/api/v1/workers", "POST", spec)["status"]["env"]
+            for key, want in (("CUDA_VISIBLE_DEVICES", "0"),
+                              ("CUDA_DEVICE_ORDER", "PCI_BUS_ID")):
+                if env.get(key) != want:
+                    raise RuntimeError(f"{pod}'s env has {key}={env.get(key)!r}")
+            tenants[pod] = {"out": out, "duty": duty, "qos": qos,
+                            "view": ShmView(env["TPF_SHM_PATH"])}
+        _node_wait_for_calls(tenants, daemon)
+        t_start, t_end, samples, api_samples, freeze = _node_window(url, provider, tenants)
+        final = _node_drain(url, tenants)
+        pids = {p for s in samples for seg in s.values() for p in seg["pids"]}
+        pids |= {l["start"] for f in final.values() for l in f["lines"] if "start" in l}
+        for pod in tenants:
+            _api(url, f"/api/v1/workers/default/{pod}", "DELETE")
+    finally:
+        for t in tenants.values():
+            t["view"].close()
+        _stop(daemon)
+        provider.shutdown()
+    left = list_worker_segments(str(work / "shm"))
+    alive = sorted(p for p in pids if Path(f"/proc/{p}").exists())
+    if left or alive:
+        raise RuntimeError(f"after DELETE: segments {left}, tenant processes {alive}")
+    peak_mflops = inventory["peak_bf16_tflops"] * 1e6
+    report = _node_report(tenants, t_start, t_end, samples, api_samples, freeze,
+                          final, peak_mflops)
+    emit("node", conformance=conformance, inventory=inventory, **report,
+         nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
+    launches = {k: 0 for k in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
+    launches["flash_attn_fwd"] = sum(t["flash_launches"] for t in report["tenants"].values())
+    return launches
+
+
+def _node_report(tenants, t_start, t_end, samples, api_samples, freeze, final,
+                 peak_mflops):
+    """The node line's numbers, and its checks (each failure raises)."""
+    window = t_end - t_start
+    out, checks = {}, {}
+    nvml_pids = {pid for a in api_samples for pid, _, _ in a["nvml_procs"]}
+    for pod, t in tenants.items():
+        lines = final[pod]["lines"]
+        seg = final[pod]["segment"]
+        check = next(l["check"] for l in lines if "check" in l)
+        calls = [l for l in lines if "t1" in l]
+        per_call = check["mflop_per_call"]
+        series = [s[pod] for s in samples]
+        in_window = [l for l in calls if l["t1"] > t_start and l["t0"] < t_end]
+        busy = sum(min(l["t1"], t_end) - max(l["t0"], t_start) for l in in_window)
+        charged = series[-1]["charged"] - series[0]["charged"]
+        bound = _bucket_bound(series, per_call)
+        shares = [s["refill"] / peak_mflops for s in series]
+        statuses = [w["status"] for a in api_samples for w in a["workers"]
+                    if w["spec"]["name"] == pod]
+        tenant_pids = {p for s in series for p in s["pids"]}
+        n_calls = sum(1 for l in calls if t_start <= l["t1"] <= t_end)
+        made = len(calls) + 1               # the loop's calls and the checked one
+        out[pod] = {
+            "duty_percent": t["duty"], "qos": t["qos"], "pids": sorted(tenant_pids),
+            "starts": sum("start" in l for l in lines),
+            "bit_equal_first_call": check["bit_equal"], "mflop_per_call": per_call,
+            "calls_total": made, "calls_in_window": n_calls,
+            "tokens_per_s": n_calls * NODE_SHAPE[0] * NODE_SHAPE[1] / window,
+            "charged_tflop_per_s": charged / window / 1e6,
+            "wall_share_in_calls": busy / window,
+            "segment_launches": seg["launches"], "segment_charged_mflop": seg["charged"],
+            "client_launches": calls[-1]["launches"],
+            "client_charged_mflop": calls[-1]["mflop"],
+            "blocked_events_in_window": series[-1]["blocked"] - series[0]["blocked"],
+            "blocked_s": calls[-1]["blocked_s"],
+            "window_charged_mflop": charged, "bucket_bound_mflop": bound,
+            "refill_share": {"first": shares[0], "median": sorted(shares)[len(shares) // 2],
+                             "last": shares[-1], "min": min(shares), "max": max(shares)},
+            "erl_settle_s": _settle_s([(s["t"] - t_start, s["refill"]) for s in series]),
+            "capacity_mflop": {"min": min(s["capacity"] for s in series),
+                               "max": max(s["capacity"] for s in series)},
+            "nvml_duty_pct_mean": sum(s["duty_cycle_pct"] for s in statuses) / len(statuses),
+            "nvml_hbm_bytes_max": max(s["hbm_used_bytes"] for s in statuses),
+            "nvml_pids_match": bool(tenant_pids & nvml_pids),
+            "flash_launches": calls[-1]["flash"],
+        }
+        checks[f"{pod}_one_start"] = out[pod]["starts"] == 1
+        checks[f"{pod}_bit_equal"] = check["bit_equal"] is True
+        checks[f"{pod}_every_call_charged"] = (
+            seg["launches"] == made and seg["charged"] == made * per_call)
+        checks[f"{pod}_bucket_bound"] = charged <= bound
+    hi_after = [l for l in final["hi"]["lines"] if "t0" in l and l["t0"] >= freeze["t_resume"]]
+    checks["hi_frozen"] = freeze["launches_at_resume"] - freeze["launches_at_freeze"] <= 1
+    checks["hi_resumed"] = len(hi_after) > 0
+    hbm = [a["devices"][0]["metrics"]["hbm_used_bytes"] for a in api_samples]
+    checks["device_memory_above_32gb"] = max(hbm) > 32e9
+    lo_calls, hi_calls = out["lo"]["calls_in_window"], out["hi"]["calls_in_window"]
+    metrics = [a["devices"][0]["metrics"] for a in api_samples]
+    report = {
+        "tenants": out,
+        "split_lo_hi": [lo_calls / max(lo_calls + hi_calls, 1),
+                        hi_calls / max(lo_calls + hi_calls, 1)],
+        "split_basis": "completed calls in the window (every call is the same forward)",
+        "freeze": {"launches_while_frozen": freeze["launches_at_resume"]
+                   - freeze["launches_at_freeze"], "calls_after_resume": len(hi_after),
+                   "seconds": freeze["t_resume"] - freeze["t_freeze"]},
+        "nvml": {"pids_seen": sorted(nvml_pids),
+                 "proc_samples": api_samples[len(api_samples) // 2]["nvml_procs"]},
+        "device": {"proc_util_supported": metrics[-1]["extra"]["proc_util_supported"],
+                   "duty_pct_mean": sum(m["duty_cycle_pct"] for m in metrics) / len(metrics),
+                   "power_w_mean": sum(m["power_watts"] for m in metrics) / len(metrics),
+                   "hbm_used_gb_max": max(hbm) / 1e9},
+        "window_s": window, "samples": len(samples), "api_samples": len(api_samples),
+        "checks": checks}
+    if not all(checks.values()):
+        raise RuntimeError(f"node phase checks failed: {report}")
+    return report
+
+
 def phase_bench_train(bench_train, limiter_lib):
     """The metered train-step bench at its own configuration."""
     result = bench_train.run(limiter_lib=str(limiter_lib))
@@ -2551,8 +3012,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:2] == ["--tenant"]:
+        return tenant_main(Path(sys.argv[2]))
     from tensorfusion_tpu_torch import (bench_train, hardware, ops, parallel, remoting,
                                         serving)
+    from tensorfusion_tpu_torch.hypervisor import _build as hv_build
     from tensorfusion_tpu_torch.client.runtime import estimate_flops
     from tensorfusion_tpu_torch.models import llama
     from tensorfusion_tpu_torch.ops import _build as build
@@ -2562,9 +3026,12 @@ def main() -> int:
     t0 = time.perf_counter()
     name, smi = phase_device(torch, build, hardware)
     rates = hardware.peak_rates(name)
-    limiter_lib = phase_build(torch, build, fa)
+    limiter_lib = phase_build(torch, build, fa, hv_build)
     rows = {"flash_attn_fwd": phase_kernels(torch, fa, rates)}
     rows.update(phase_bwd_kernels(torch, fa, rates))
+    torch.cuda.empty_cache()
+    # while this process holds almost nothing: two 8B tenants share the card
+    node_launches = phase_node(torch, hardware, hv_build, limiter_lib, name, smi)
 
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attn_impl="flash")
     params, serve_launches = phase_serve(torch, ops, llama, bench_train,
@@ -2611,7 +3078,8 @@ def main() -> int:
                 "launches": serve_launches[k.name] + train_launches[k.name]
                 + engine_launches[k.name] + remote_launches[k.name]
                 + remote_serve_launches[k.name] + fed_launches[k.name]
-                + mig_launches[k.name] + mesh_launches[k.name],
+                + mig_launches[k.name] + mesh_launches[k.name]
+                + node_launches[k.name],
                 "launches_by_path": {"serve": serve_launches[k.name],
                                      "train": train_launches[k.name],
                                      "engine": engine_launches[k.name],
@@ -2619,7 +3087,8 @@ def main() -> int:
                                      "remote_serve": remote_serve_launches[k.name],
                                      "federation": fed_launches[k.name],
                                      "migrate": mig_launches[k.name],
-                                     "mesh": mesh_launches[k.name]},
+                                     "mesh": mesh_launches[k.name],
+                                     "node": node_launches[k.name]},
                 **{key: rows[k.name][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "plain", "library", "pair_ms")

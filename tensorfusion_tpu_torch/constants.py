@@ -1,7 +1,8 @@
-"""Environment names the port's client, remote worker, tracer and
-profiler read, and the QoS ladder its serving engine and dispatcher
-schedule by (the same contract as the JAX package's; see
-tensorfusion_tpu/constants.py)."""
+"""Environment names the port's client, remote worker, tracer, profiler
+and node agent read, the QoS ladder its serving engine and dispatcher
+schedule by, and the node agent's isolation modes and worker phases (the
+same contract as the JAX package's; see tensorfusion_tpu/constants.py).
+The one name that differs is the visible-device variable: CUDA's."""
 
 ENV_SHM_PATH = "TPF_SHM_PATH"                  # worker segment path
 ENV_HYPERVISOR_URL = "TPF_HYPERVISOR_URL"      # node-local bootstrap endpoint
@@ -17,6 +18,45 @@ ENV_PROF = "TPF_PROF"                          # tpfprof attribution: 0 disables
 ENV_PROF_BIN_S = "TPF_PROF_BIN_S"              # attribution bin width (s)
 ENV_PROF_BUNDLE_DIR = "TPF_PROF_BUNDLE_DIR"    # auto postmortem bundle dir
 ENV_FED_QUANT = "TPF_FED_QUANT"                # federated collective q8: 1/0
+ENV_OPERATOR_URL = "TPF_OPERATOR_URL"          # control-plane client API
+ENV_NODE_NAME = "TPF_NODE_NAME"
+ENV_PROVIDER_LIB = "TPF_PROVIDER_LIB"
+ENV_SHM_BASE = "TPF_SHM_BASE"
+#: the bound host indices; CUDA orders devices fastest first unless
+#: CUDA_DEVICE_ORDER says PCI_BUS_ID, which is NVML's (and the provider's)
+#: index order, so the allocation sets both
+ENV_VISIBLE_DEVICES = "CUDA_VISIBLE_DEVICES"
+ENV_DEVICE_ORDER = "CUDA_DEVICE_ORDER"
+DEVICE_ORDER_PCI = "PCI_BUS_ID"
+ENV_CHIP_IDS = "TPF_CHIP_IDS"
+ENV_ISOLATION = "TPF_ISOLATION"
+ENV_DEVICE_MOUNTS = "TPF_DEVICE_MOUNTS"        # mount-policy host paths
+ENV_HBM_HOST_SPILL = "TPF_HBM_HOST_SPILL"      # bytes the client must offload
+ENV_HYPERVISOR_TOKEN = "TPF_HYPERVISOR_TOKEN"  # the node agent's API token
+ENV_NVML_LIB = "TPF_NVML_LIB"                  # NVML provider: libnvidia-ml path
+
+DEFAULT_HYPERVISOR_PORT = 8000
+
+ISOLATION_SHARED = "shared"            # no enforcement, best effort
+ISOLATION_SOFT = "soft"                # shm token buckets + ERL
+ISOLATION_HARD = "hard"                # one-shot provider hard caps
+ISOLATION_PARTITIONED = "partitioned"  # whole cards via provider grants
+ISOLATION_MODES = (
+    ISOLATION_SHARED,
+    ISOLATION_SOFT,
+    ISOLATION_HARD,
+    ISOLATION_PARTITIONED,
+)
+DEFAULT_ISOLATION = ISOLATION_SOFT
+
+PHASE_PENDING = "Pending"
+PHASE_PROVISIONING = "Provisioning"
+PHASE_RUNNING = "Running"
+PHASE_SUCCEEDED = "Succeeded"
+PHASE_FAILED = "Failed"
+PHASE_UNKNOWN = "Unknown"
+PHASE_DESTROYING = "Destroying"
+PHASE_MIGRATING = "Migrating"
 
 #: remote dispatcher queue depths: deep enough for pipelining clients
 #: (depths of 8-32), shallow enough that queue wait stays bounded

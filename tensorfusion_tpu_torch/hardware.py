@@ -10,21 +10,23 @@ from __future__ import annotations
 import subprocess
 from typing import Dict
 
-#: (match in the device name, bf16 dense FLOP/s, memory bytes/s), from
-#: NVIDIA's H100 datasheet; the first match wins
+#: (match in the device name, bf16 dense FLOP/s, int8 dense OP/s, memory
+#: bytes/s), from NVIDIA's H100 datasheet; the first match wins.  The NVML
+#: provider (hypervisor/csrc/provider_nvml.c) carries the same table.
 PEAKS = (
-    ("H100 PCIe", 756e12, 2.0e12),
-    ("H100 NVL", 835e12, 3.9e12),
-    ("H100", 989e12, 3.35e12),      # SXM
+    ("H100 PCIe", 756e12, 1513e12, 2.0e12),
+    ("H100 NVL", 835e12, 1671e12, 3.9e12),
+    ("H100", 989e12, 1979e12, 3.35e12),      # SXM
 )
 
 
 def peak_rates(name: str) -> Dict[str, float]:
-    """{"bf16": FLOP/s, "bytes": bytes/s} of the card called ``name``
-    (``torch.cuda.get_device_name``); raises for a card not in the table."""
-    for key, bf16, mem in PEAKS:
+    """{"bf16": FLOP/s, "int8": OP/s, "bytes": bytes/s} of the card called
+    ``name`` (``torch.cuda.get_device_name``); raises for a card not in the
+    table."""
+    for key, bf16, int8, mem in PEAKS:
         if key in name:
-            return {"bf16": bf16, "bytes": mem}
+            return {"bf16": bf16, "int8": int8, "bytes": mem}
     raise RuntimeError(f"no peak rates known for {name!r}")
 
 

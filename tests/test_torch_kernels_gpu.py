@@ -856,3 +856,125 @@ def test_nccl_with_more_ranks_than_cards_raises():
 
     with pytest.raises(ValueError, match="one card a rank"):
         RankGroup(torch.cuda.device_count() + 1, device="cuda", backend="nccl")
+
+
+# -- the node agent over the real NVML -------------------------------------------
+
+
+def test_nvml_provider_agrees_with_torch(gen):
+    from tensorfusion_tpu_torch.hypervisor import Provider, _build
+
+    p = Provider(str(_build.provider_path()))
+    p.init()
+    try:
+        chips = p.enumerate()
+        assert len(chips) == torch.cuda.device_count()
+        for i, chip in enumerate(chips):
+            name = torch.cuda.get_device_name(i)
+            assert p.partition_templates(chip.chip_id)[0].name == f"{name} whole card"
+            total = torch.cuda.get_device_properties(i).total_memory
+            assert abs(chip.hbm_bytes - total) <= 0.01 * total
+        metrics = p.chip_metrics([c.chip_id for c in chips])
+        assert all(m.power_watts > 0 and m.extra["power_limit_w"] > 0 for m in metrics)
+    finally:
+        p.shutdown()
+
+
+_TENANT = """
+import json, sys, time
+sys.path.insert(0, {repo!r})
+import torch
+from tensorfusion_tpu_torch.client.runtime import VTPUClient, estimate_flops
+client = VTPUClient()
+out = open(sys.argv[1], "a", buffering=1)
+if not client.attached:
+    out.write(json.dumps({{"attached": False}}) + "\\n")
+    sys.exit(3)
+fn = lambda x: (x @ x).relu()
+step = client.meter(fn)
+x = torch.randn(2048, 2048, device="cuda")
+out.write(json.dumps({{"estimate": max(int(estimate_flops(fn, (x,), {{}}) / 1e6), 1)}})
+          + "\\n")
+while True:
+    step(x)
+    torch.cuda.synchronize()
+    out.write(json.dumps({{"launches": client.launches,
+                          "mflop": client.charged_mflops}}) + "\\n")
+    time.sleep(0.02)
+"""
+
+
+def test_soft_tenant_through_the_daemon_is_charged_for_every_call(gen, limiter_lib,
+                                                                  tmp_path):
+    """The port's daemon over NVML spawns a soft tenant with its
+    allocation env; frozen after a few calls, its segment has charged
+    exactly the calls the tenant made, each at the client's estimate."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    from tensorfusion_tpu_torch.hypervisor import ShmView
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    (tmp_path / "tenant.py").write_text(_TENANT.format(repo=repo))
+    calls = tmp_path / "calls.jsonl"
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "tensorfusion_tpu_torch.hypervisor",
+         "--limiter", limiter_lib, "--shm-base", str(tmp_path / "shm"),
+         "--state-dir", str(tmp_path / "state"), "--snapshot-dir", str(tmp_path / "snap"),
+         "--port", "0", "--port-file", str(tmp_path / "port"), "--api-token", "t"],
+        cwd=repo, stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+
+    def api(path, method="GET", body=None):
+        url = f"http://127.0.0.1:{(tmp_path / 'port').read_text()}"
+        req = urllib.request.Request(url + path, method=method,
+                                     data=json.dumps(body).encode() if body else None,
+                                     headers={"X-TPF-Token": "t"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return json.loads(r.read())
+
+    def lines():
+        out = []
+        for line in calls.read_text().splitlines() if calls.exists() else []:
+            try:
+                out.append(json.loads(line))
+            except ValueError:      # a line still being written
+                pass
+        return out
+
+    try:
+        deadline = time.time() + 120
+        while not ((tmp_path / "port").exists() and (tmp_path / "port").read_text()):
+            assert time.time() < deadline and daemon.poll() is None
+            time.sleep(0.2)
+        time.sleep(0.5)
+        chip = api("/api/v1/devices")[0]["info"]["chip_id"]
+        env = api("/api/v1/workers", "POST", {
+            "namespace": "t", "name": "w", "isolation": "soft",
+            "devices": [{"chip_id": chip, "duty_percent": 50, "hbm_bytes": 4 << 30}],
+            "command": [sys.executable, str(tmp_path / "tenant.py"), str(calls)]})[
+                "status"]["env"]
+        view = ShmView(env["TPF_SHM_PATH"])
+        while len(lines()) < 6:
+            assert time.time() < deadline, calls.read_text() if calls.exists() else ""
+            time.sleep(0.2)
+        api("/api/v1/workers/t/w/freeze", "POST", {})
+        blocked = view.read().devices[0].blocked_events
+        # refused a charge since the freeze: every admitted call is recorded
+        while view.read().devices[0].blocked_events <= blocked:
+            assert time.time() < deadline
+            time.sleep(0.1)
+        dev = view.read().devices[0]
+        estimate = lines()[0]["estimate"]
+        made = lines()[1:]
+        assert dev.launches == len(made)
+        assert dev.total_charged_mflop == len(made) * estimate
+        view.close()
+        api("/api/v1/workers/t/w", "DELETE")
+        assert not os.path.exists(env["TPF_SHM_PATH"])
+    finally:
+        daemon.terminate()
+        daemon.wait(timeout=30)
