@@ -6,27 +6,44 @@ NVIDIA H100.
 
 Run from the root of a checkout on a machine with one Hopper card, nvcc
 and make.  It builds the kernels (flash forward, flash backward),
-libtpf_limiter.so, the reference's provider_conformance and the port's
-NVML provider from the checkout (failing if ptxas reports a spill, or if
-the provider's hand-declared NVML types disagree with the toolkit's
-nvml.h), holds every kernel against its plain PyTorch version on the card
-and times it at the main path's shape and at a long one, then drives the
-port's nine paths at Llama-3-8B width (random weights from fixed seeds),
-each with the kernel launch counts set to 0 just before it and read just
-after:
+libtpf_limiter.so, the reference's provider_conformance, the port's NVML
+provider and its launch and memory hook from the checkout (failing if
+ptxas reports a spill, or if the hand-declared NVML or CUDA driver types
+disagree with the toolkit's nvml.h or cuda.h), holds every kernel against
+its plain PyTorch version on the card and times it at the main path's
+shape and at a long one, then drives the port's ten paths at Llama-3-8B
+width (random weights from fixed seeds), each with the kernel launch
+counts set to 0 just before it and read just after:
 
 - the node agent (first, while this process holds almost nothing):
   provider_conformance against the NVML provider over the real NVML; the
   port's hypervisor daemon (``python -m tensorfusion_tpu_torch.hypervisor``)
   over it, its inventory against torch and nvidia-smi; two soft tenants
   (``default/lo`` at 25% duty, QoS low; ``default/hi`` at 75%, QoS high)
-  submitted through its API and spawned by its single-node backend, each
-  ``python3 chip_smoke.py --tenant DIR``: Llama-3-8B at 32 layers, the
-  first metered forward bit-equal to an unmetered one, then the metered
-  forward on 4 x 1024 tokens in a loop under the 10 Hz ERL loop, while
-  both segments are sampled; ``hi`` frozen for 3 s and resumed; every
-  call charged, the token-bucket bound, and nothing left after DELETE.
-  Its launches are the tenants' own;
+  submitted through its API and spawned by its single-node backend with
+  the launch hook preloaded, each ``python3 chip_smoke.py --tenant DIR``:
+  Llama-3-8B at 32 layers, the first metered forward bit-equal to an
+  unmetered one, then the metered forward on 4 x 1024 tokens in a loop
+  under the 10 Hz ERL loop, while both segments are sampled; ``hi``
+  frozen for 3 s and resumed; each segment holding exactly the hook's
+  charges (the client, which also counts every call, charges nothing
+  under the hook), the token-bucket bound, and nothing left after
+  DELETE.  Its launches are the tenants' own;
+- interception: tenants that never import the client runtime, metered
+  by the launch hook alone.  (a) A probe child under the hook: the
+  driver entries a 2-layer forward, a train step, graph capture and
+  replay (``LlamaRunner``) and direct flash calls reach, with counts,
+  and the flash output bit-equal to the same call without the hook; (b)
+  tiny launches and the 32-layer forward without and with the hook, in
+  four children; (c) one raw tenant (``chip_smoke.py --tenant-raw DIR``)
+  alone for 10 s: charged device-seconds against its time in calls; (d)
+  ``lo`` and ``hi`` as raw tenants under the daemon for 30 s, no freeze:
+  the split of device time, NVML duty (at least 90%: the node agent
+  raises each refill by its part of the card's overcharge), tokens/s,
+  memory charged against ``torch.cuda.memory_reserved``, the daemon's
+  tick times.  In (c), (d) and the node phase no launch goes untimed for
+  want of a window or uncharged for a capture.  Its launches are those of
+  the tenants of (c) and (d);
 
 - serving: greedy ``generate`` requests, 32 layers, through the metered
   client;
@@ -90,7 +107,7 @@ train-step bench (``tensorfusion_tpu_torch.bench_train``).  Each phase
 prints one JSON line; any failure raises and exits non-zero.  The line
 before the last two is the kernel table (its ``launches_by_path`` has
 ``serve``, ``engine``, ``train``, ``remote``, ``remote_serve``,
-``federation``, ``migrate``, ``mesh`` and ``node``), the
+``federation``, ``migrate``, ``mesh``, ``node`` and ``intercept``), the
 line before the last is nvidia-smi's name and power limit, and the last
 line is
 
@@ -154,6 +171,18 @@ NODE_SAMPLE_S = 0.1                        # segment sampling period
 NODE_FREEZE_AT_S, NODE_FREEZE_S = 20.0, 3.0  # hi frozen from, for (s)
 NODE_START_TIMEOUT_S = 300.0               # tenants' weights built, first call
 NODE_TOKEN = "chip-smoke-node"             # the daemon's API token
+NODE_STOP_TIMEOUT_S = 120.0                # tenants' last call and record
+PROBE_LAYERS, PROBE_SHAPE = 2, (2, 512)    # the probe's model depth, tokens
+PROBE_SEED = 21                            # the probe's weights and inputs
+PROBE_BLOCKS, PROBE_DECODES = 17, 16       # its paged pool, graphed decode steps
+PROBE_FLASH_SHAPE = (128, 1024, 128)       # direct flash calls: [B*H, T, D]
+PROBE_FLASH_CALLS = 4
+OVERHEAD_TINY, OVERHEAD_ROUNDS = 20000, 5  # tiny launches timed in part b
+OVERHEAD_CALLS = 5                         # forwards timed in part b
+INTERCEPT_ALONE_S = 10.0                   # part c: one raw tenant alone
+INTERCEPT_WINDOW_S = 30.0                  # part d: two raw tenants
+INTERCEPT_LO_BAND = (0.15, 0.35)           # lo's share of device time (25%)
+INTERCEPT_MIN_DUTY = 90.0                  # part d: NVML's duty of the card, %
 
 
 def emit(phase: str, **fields) -> None:
@@ -195,8 +224,9 @@ def phase_device(torch, build, hardware):
 
 def phase_build(torch, build, fa, hv_build):
     """The kernels (one nvcc each, in parallel), the limiter and the
-    provider conformance check, together; the NVML provider, and its NVML
-    declarations held against the toolkit's nvml.h; then what each kernel
+    provider conformance check, together; the NVML provider and the launch
+    hook, and their driver declarations held against the toolkit's nvml.h
+    and cuda.h; then what each kernel
     holds (ptxas, dynamic shared memory) and what a launch's tensor maps
     cost on the host."""
     t0 = time.perf_counter()
@@ -216,6 +246,8 @@ def phase_build(torch, build, fa, hv_build):
         t_provider = time.perf_counter()
         provider_lib = hv_build.provider_path()
         nvml_header = hv_build.check_nvml_layout()
+        hook_lib = hv_build.cuda_hook_path()
+        cuda_header = hv_build.check_cuda_layout()
         provider_s = time.perf_counter() - t_provider
         kernel_s = build.build_all()
     finally:
@@ -228,6 +260,7 @@ def phase_build(torch, build, fa, hv_build):
               for k, v in kernels.items() if v["spill_bytes"]}
     emit("build", kernels_s=kernel_s, limiter_s=limiter["s"], provider_s=provider_s,
          nvml_provider=str(provider_lib.relative_to(REPO)), nvml_header=str(nvml_header),
+         cuda_hook=str(hook_lib.relative_to(REPO)), cuda_header=str(cuda_header),
          libraries=[str(build.library_path(n).relative_to(REPO))
                     for n in build.SOURCES], ptxas=ptxas,
          dynamic_smem_bf16=_dynamic_smem(fa),
@@ -2566,20 +2599,83 @@ def phase_mesh(torch, ops, llama, parallel, cfg, smi):
 # -- the node agent: two metered tenants under the port's hypervisor ----------
 
 
-def tenant_main(out: Path) -> int:
-    """One tenant of ``phase_node``, spawned by the hypervisor's single-node
-    backend with its allocation env: attach the metering client from that
-    env, build Llama-3-8B (bf16, flash, seeded random weights), check one
-    metered forward bit for bit against an unmetered one, then loop the
-    metered forward until terminated, a JSON line per call in
-    ``out/calls.jsonl``."""
+def _tenant_log(out: Path):
+    """A spawned child's own log (the backend gives its workers no stdout)
+    and its record writer: a JSON line per record in ``out/calls.jsonl``."""
     import os
 
     out.mkdir(parents=True, exist_ok=True)
-    # the backend gives its workers no stdout: keep the tenant's own log
     log = open(out / "tenant.log", "a", buffering=1)
     os.dup2(log.fileno(), 1)
     os.dup2(log.fileno(), 2)
+    calls = open(out / "calls.jsonl", "a", buffering=1)
+    return lambda **fields: calls.write(json.dumps(fields) + "\n")
+
+
+HOOK_FIELDS = ("launches", "charges", "charged_mflops", "device_us", "blocked_us",
+               "hbm_charged_bytes", "hbm_denied", "captured", "graph_launches", "windows",
+               "untimed", "unwindowed")
+
+
+def _all_windowed(hook):
+    """No launch went unwindowed (the hook's stream table full) or
+    uncharged for a capture: a tenant that captures no graph has every
+    launch charged."""
+    return hook["unwindowed"] == 0 and hook["captured"] == 0
+
+
+def _hooked():
+    """The launch and memory hook preloaded into this process, attached to
+    its segment; a process that should be metered and is not raises."""
+    from tensorfusion_tpu_torch.hypervisor import cuda_hook_binding
+
+    hook = cuda_hook_binding.loaded()
+    if hook is None or not hook.metered():
+        raise RuntimeError("this process runs without the node agent's launch hook")
+    return hook
+
+
+def _hook_counts(hook):
+    report = hook.report()
+    return {k: report[k] for k in HOOK_FIELDS}
+
+
+def _tenant_loop(out, record, call, torch, ops, hook, fields=dict):
+    """Call until ``out/stop`` appears, a record after each call (its span,
+    the flash launches, the reserved memory, the hook's counts and
+    ``fields()``); then a last record, and idle until terminated (the
+    backend restarts a worker that exits)."""
+    while not (out / "stop").exists():
+        t0 = time.monotonic()
+        call()
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        record(t0=t0, t1=t1, flash=ops.launch_counts()["flash_attn_fwd"],
+               reserved=torch.cuda.memory_reserved(), hook=_hook_counts(hook), **fields())
+    record(stopped=time.monotonic(), flash=ops.launch_counts()["flash_attn_fwd"],
+           reserved=torch.cuda.memory_reserved(), hook=_hook_counts(hook), **fields())
+    while True:
+        time.sleep(3600)
+
+
+def _tenant_model(torch, llama):
+    """Llama-3-8B (bf16, flash) from NODE_SEED, and its NODE_SHAPE tokens."""
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attn_impl="flash")
+    gen = torch.Generator(device=DEVICE).manual_seed(NODE_SEED)
+    params = llama.init_params(cfg, gen, device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab_size, NODE_SHAPE, generator=gen, device=DEVICE)
+    return cfg, params, tokens
+
+
+def tenant_main(out: Path) -> int:
+    """One tenant of ``phase_node``, spawned by the hypervisor's single-node
+    backend with its allocation env, the launch hook preloaded: attach the
+    metering client from that env (which leaves the charging to the hook),
+    build Llama-3-8B, check one metered forward bit for bit against an
+    unmetered one, then loop the metered forward until told to stop."""
+    import os
+
+    record = _tenant_log(out)
     import torch
 
     sys.path.insert(0, str(REPO))
@@ -2587,19 +2683,12 @@ def tenant_main(out: Path) -> int:
     from tensorfusion_tpu_torch.client.runtime import VTPUClient, estimate_flops
     from tensorfusion_tpu_torch.models import llama
 
-    calls = open(out / "calls.jsonl", "a", buffering=1)
-
-    def record(**fields):
-        calls.write(json.dumps(fields) + "\n")
-
     record(start=os.getpid(), t=time.monotonic())
+    hook = _hooked()
     client = VTPUClient(device=DEVICE)
     if not client.attached:
         raise RuntimeError("the tenant found no limiter segment: it would run unmetered")
-    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attn_impl="flash")
-    gen = torch.Generator(device=DEVICE).manual_seed(NODE_SEED)
-    params = llama.init_params(cfg, gen, device=DEVICE)
-    tokens = torch.randint(0, cfg.vocab_size, NODE_SHAPE, generator=gen, device=DEVICE)
+    cfg, params, tokens = _tenant_model(torch, llama)
     forward = client.meter(llama.forward)
     want = llama.forward(params, tokens, cfg)
     got = forward(params, tokens, cfg)
@@ -2608,20 +2697,142 @@ def tenant_main(out: Path) -> int:
     # the client's estimate of one call, as its meter computes it
     per_call = max(int(estimate_flops(llama.forward, (params, tokens, cfg), {}) / 1e6), 1)
     record(check={"bit_equal": equal, "mflop_per_call": per_call,
+                  "client_by_hook": client.hook is not None,
                   "config": {"dim": cfg.dim, "n_layers": cfg.n_layers,
                              "dtype": str(cfg.dtype), "attn_impl": cfg.attn_impl},
                   "shape": list(NODE_SHAPE)})
     if not equal:
         raise RuntimeError("a metered forward differs from an unmetered one")
-    while True:
-        t0 = time.monotonic()
-        logits = forward(params, tokens, cfg)
+    _tenant_loop(out, record, lambda: forward(params, tokens, cfg), torch, ops, hook,
+                 lambda: {"launches": client.launches, "mflop": client.charged_mflops,
+                          "blocked_s": client.blocked_time_s})
+
+
+def tenant_raw_main(out: Path) -> int:
+    """An unmodified tenant (``phase_intercept``): the Llama-3-8B forward in
+    a loop, in plain torch, never importing the client runtime; only the
+    preloaded launch hook meters it."""
+    import os
+
+    record = _tenant_log(out)
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from tensorfusion_tpu_torch import ops
+    from tensorfusion_tpu_torch.models import llama
+
+    record(start=os.getpid(), t=time.monotonic())
+    hook = _hooked()
+    cfg, params, tokens = _tenant_model(torch, llama)
+    settings = hook.report()
+    record(check={"client_runtime_imported": "tensorfusion_tpu_torch.client.runtime"
+                  in sys.modules, "config": {"dim": cfg.dim, "n_layers": cfg.n_layers},
+                  "shape": list(NODE_SHAPE), "peak_mflops": settings["peak_mflops"]})
+    _tenant_loop(out, record, lambda: llama.forward(params, tokens, cfg), torch, ops, hook)
+
+
+def _probe_inputs(torch):
+    gen = torch.Generator(device=DEVICE).manual_seed(PROBE_SEED)
+    return [torch.randn(PROBE_FLASH_SHAPE, generator=gen, device=DEVICE).to(torch.bfloat16)
+            for _ in range(3)]
+
+
+def probe_main(out: Path) -> int:
+    """``phase_intercept`` part a, in a child under the hook: which driver
+    entries a Llama forward, a train step, CUDA-graph capture and replay
+    (``LlamaRunner``) and direct calls of the flash forward library reach,
+    with counts; and the flash output, for a bit-for-bit comparison."""
+    out.mkdir(parents=True, exist_ok=True)
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from tensorfusion_tpu_torch.models import llama
+    from tensorfusion_tpu_torch.serving import LlamaRunner
+
+    fa = sys.modules["tensorfusion_tpu_torch.ops.flash_attention"]
+    hook = _hooked()
+    parts = {}
+
+    def part(name, fn):
+        before = hook.report()
+        fn()
         torch.cuda.synchronize()
-        t1 = time.monotonic()
-        del logits
-        record(t0=t0, t1=t1, launches=client.launches, mflop=client.charged_mflops,
-               flash=ops.launch_counts()["flash_attn_fwd"],
-               blocked_s=client.blocked_time_s)
+        after = hook.report()
+        entries = {k: after["entries"][k] - before["entries"][k] for k in after["entries"]}
+        parts[name] = {"entries": {k: v for k, v in entries.items() if v},
+                       **{k: after[k] - before[k] for k in HOOK_FIELDS}}
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attn_impl="flash",
+                              n_layers=PROBE_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(PROBE_SEED)
+    params = llama.init_params(cfg, gen, device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab_size, PROBE_SHAPE, generator=gen, device=DEVICE)
+    part("forward", lambda: llama.forward(params, tokens, cfg))
+    step, init = llama.make_train_step(cfg, device=DEVICE)
+    state = init(params)
+    batch = {"tokens": tokens, "targets": tokens.roll(-1, dims=1)}
+    part("train_step", lambda: step(params, state, batch))
+    del state
+    runner = LlamaRunner(params, cfg, num_blocks=PROBE_BLOCKS, block_size=16, device=DEVICE)
+    prompt = tokens[0, :64].tolist()
+    table = list(range(1, PROBE_BLOCKS))
+    first = runner.prefill(prompt, table, 0)
+    part("graph_capture", lambda: runner.warmup(max_batch=1, prompt_len=64, chunk=64))
+
+    def replays():
+        toks, pos = [first], [len(prompt)]
+        for _ in range(PROBE_DECODES):
+            toks, pos = runner.decode(toks, pos, [table]), [pos[0] + 1]
+
+    part("graph_replay", replays)
+    q, k, v = _probe_inputs(torch)
+    outs = []
+    part("flash_direct", lambda: outs.extend(
+        fa.flash_fwd_cuda(q, k, v, PROBE_FLASH_SHAPE[-1] ** -0.5, True)[0]
+        for _ in range(PROBE_FLASH_CALLS)))
+    torch.save(outs[0].cpu(), out / "flash_out.pt")
+    (out / "probe.json").write_text(json.dumps({
+        "parts": parts, "report": hook.report(), "graphs": [list(k) for k in runner.graphs]}))
+    return 0
+
+
+def overhead_main(out: Path) -> int:
+    """``phase_intercept`` part b, in a child with or without the hook:
+    host microseconds a launch of a tiny kernel, and the wall time of the
+    Llama-3-8B forward on NODE_SHAPE tokens."""
+    out.mkdir(parents=True, exist_ok=True)
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from tensorfusion_tpu_torch.hypervisor import cuda_hook_binding
+    from tensorfusion_tpu_torch.models import llama
+
+    hook = cuda_hook_binding.loaded()
+    x = torch.zeros(1, device=DEVICE)
+    for _ in range(1000):
+        x.add_(1)
+    torch.cuda.synchronize()
+    rounds = []                          # the best round: the host's own noise is large
+    for _ in range(OVERHEAD_ROUNDS):
+        t0 = time.perf_counter()
+        for _ in range(OVERHEAD_TINY // OVERHEAD_ROUNDS):
+            x.add_(1)
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0) / (OVERHEAD_TINY // OVERHEAD_ROUNDS) * 1e6)
+    tiny_us = min(rounds)
+    cfg, params, tokens = _tenant_model(torch, llama)
+    walls = []
+    for i in range(2 + OVERHEAD_CALLS):
+        t0 = time.perf_counter()
+        llama.forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    (out / "overhead.json").write_text(json.dumps({
+        "hooked": hook is not None and hook.metered(), "tiny_us": tiny_us,
+        "tiny_us_rounds": rounds,
+        "forward_ms": walls, "report": hook.report() if hook else None}))
+    return 0
 
 
 def _tenant_lines(out: Path):
@@ -2770,7 +2981,7 @@ def _read_segment(view):
             "refill": d.refill_mflop_per_s, "last_refill_us": d.last_refill_us,
             "charged": d.total_charged_mflop, "launches": d.launches,
             "blocked": d.blocked_events, "pod_hbm": d.pod_hbm_used_bytes,
-            "pids": list(state.pids), "frozen": state.frozen}
+            "hbm_used": d.hbm_used_bytes, "pids": list(state.pids), "frozen": state.frozen}
 
 
 def _node_wait_for_calls(tenants, daemon):
@@ -2796,26 +3007,26 @@ def _tail(path, n=3000):
     return path.read_text()[-n:] if path.exists() else f"<no {path.name}>"
 
 
-def _node_window(url, provider, tenants):
-    """NODE_WINDOW_S of samples: both segments every NODE_SAMPLE_S, the
-    API's workers and devices and NVML's processes every second; ``hi``
-    frozen from NODE_FREEZE_AT_S for NODE_FREEZE_S."""
+def _node_window(url, provider, tenants, window_s=NODE_WINDOW_S, freeze_pod="hi"):
+    """``window_s`` of samples: the segments every NODE_SAMPLE_S, the API's
+    workers and devices and NVML's processes every second; ``freeze_pod``
+    (if any) frozen from NODE_FREEZE_AT_S for NODE_FREEZE_S."""
     t_start = time.monotonic()
     samples, api_samples, freeze = [], [], {}
     next_api = t_start
     while True:
         now = time.monotonic()
-        if now >= t_start + NODE_WINDOW_S:
+        if now >= t_start + window_s:
             break
         samples.append({pod: _read_segment(t["view"]) for pod, t in tenants.items()})
-        if "t_freeze" not in freeze and now >= t_start + NODE_FREEZE_AT_S:
-            _api(url, "/api/v1/workers/default/hi/freeze", "POST", {})
+        if freeze_pod and "t_freeze" not in freeze and now >= t_start + NODE_FREEZE_AT_S:
+            _api(url, f"/api/v1/workers/default/{freeze_pod}/freeze", "POST", {})
             freeze["t_freeze"] = time.monotonic()
-            freeze["launches_at_freeze"] = _read_segment(tenants["hi"]["view"])["launches"]
+            freeze["launches_at_freeze"] = _read_segment(tenants[freeze_pod]["view"])["launches"]
         elif "t_resume" not in freeze and "t_freeze" in freeze \
                 and now >= freeze["t_freeze"] + NODE_FREEZE_S:
-            freeze["launches_at_resume"] = _read_segment(tenants["hi"]["view"])["launches"]
-            _api(url, "/api/v1/workers/default/hi/resume", "POST", {})
+            freeze["launches_at_resume"] = _read_segment(tenants[freeze_pod]["view"])["launches"]
+            _api(url, f"/api/v1/workers/default/{freeze_pod}/resume", "POST", {})
             freeze["t_resume"] = time.monotonic()
         if now >= next_api:
             api_samples.append({
@@ -2828,37 +3039,58 @@ def _node_window(url, provider, tenants):
     return t_start, time.monotonic(), samples, api_samples, freeze
 
 
-def _node_drain(url, tenants):
-    """Freeze both tenants and wait until each has been refused a charge
-    since: a tenant charges only between calls, after writing the record
-    of the last, so then the segments and the tenants' records describe
-    the same calls."""
-    for pod in tenants:
-        _api(url, f"/api/v1/workers/default/{pod}/freeze", "POST", {})
-    blocked0 = {pod: _read_segment(t["view"])["blocked"] for pod, t in tenants.items()}
-    deadline = time.monotonic() + 120
+def _node_stop(daemon, tenants):
+    """Tell each tenant to stop after its call in flight and wait for its
+    last record: a tenant launches only inside its calls, so then its
+    segment and its records describe the same launches."""
+    for t in tenants.values():
+        (t["out"] / "stop").touch()
+    deadline = time.monotonic() + NODE_STOP_TIMEOUT_S
     while True:
         final = {}
         for pod, t in tenants.items():
-            seg = _read_segment(t["view"])
-            if seg["blocked"] > blocked0[pod]:
-                final[pod] = {"segment": seg, "lines": _tenant_lines(t["out"])}
+            lines = _tenant_lines(t["out"])
+            if any("stopped" in l for l in lines):
+                final[pod] = {"segment": _read_segment(t["view"]), "lines": lines,
+                              "stopped": next(l for l in lines if "stopped" in l)}
         if len(final) == len(tenants):
             return final
-        if time.monotonic() > deadline:
-            raise RuntimeError(f"the tenants did not settle frozen: {final.keys()}")
+        if daemon.poll() is not None or time.monotonic() > deadline:
+            raise RuntimeError(f"the tenants did not stop: {sorted(final)}:\n" + "\n".join(
+                f"{pod}: " + _tail(t["out"] / "tenant.log") for pod, t in tenants.items()))
         time.sleep(0.2)
+
+
+def _submit_tenants(url, chip, work, mode, hook_lib):
+    """Submit NODE_TENANTS as soft workers running ``chip_smoke.py mode
+    DIR``; each one's env must preload the launch hook."""
+    from tensorfusion_tpu_torch.hypervisor import ShmView
+
+    tenants = {}
+    for pod, duty, qos in NODE_TENANTS:
+        out = work / "tenants" / pod
+        spec = {"namespace": "default", "name": pod, "isolation": "soft", "qos": qos,
+                "devices": [{"chip_id": chip, "duty_percent": duty,
+                             "hbm_bytes": NODE_HBM_BYTES}],
+                "command": [sys.executable, str(REPO / "chip_smoke.py"), mode, str(out)]}
+        got = _api(url, "/api/v1/workers", "POST", spec)["status"]["env"]
+        for key, want in (("CUDA_VISIBLE_DEVICES", "0"), ("CUDA_DEVICE_ORDER", "PCI_BUS_ID"),
+                          ("LD_PRELOAD", str(hook_lib))):
+            if got.get(key, "").split(":")[0] != want:
+                raise RuntimeError(f"{pod}'s env has {key}={got.get(key)!r}")
+        tenants[pod] = {"out": out, "duty": duty, "qos": qos,
+                        "view": ShmView(got["TPF_SHM_PATH"])}
+    return tenants
 
 
 def phase_node(torch, hardware, hv_build, limiter_lib, name, smi):
     """The node agent on the card: conformance of the NVML provider, the
     port's hypervisor daemon over it, and two soft tenants (``default/lo``
     at 25% duty, QoS low; ``default/hi`` at 75%, QoS high) spawned by its
-    single-node backend, each looping the metered Llama-3-8B forward under
-    the 10 Hz ERL loop, ``hi`` frozen for NODE_FREEZE_S mid-window.
-    Returns the tenants' kernel launches."""
-    from tensorfusion_tpu_torch.hypervisor import (Provider, ShmView,
-                                                   list_worker_segments)
+    single-node backend with the launch hook preloaded, each looping the
+    metered Llama-3-8B forward under the 10 Hz ERL loop, ``hi`` frozen for
+    NODE_FREEZE_S mid-window.  Returns the tenants' kernel launches."""
+    from tensorfusion_tpu_torch.hypervisor import Provider, list_worker_segments
 
     t_phase = time.perf_counter()
     work = WORK / "node"
@@ -2872,23 +3104,10 @@ def phase_node(torch, hardware, hv_build, limiter_lib, name, smi):
     tenants = {}
     try:
         chip, inventory = _node_inventory(torch, hardware, provider, url, name, smi)
-        for pod, duty, qos in NODE_TENANTS:
-            out = work / "tenants" / pod
-            spec = {"namespace": "default", "name": pod, "isolation": "soft", "qos": qos,
-                    "devices": [{"chip_id": chip, "duty_percent": duty,
-                                 "hbm_bytes": NODE_HBM_BYTES}],
-                    "command": [sys.executable, str(REPO / "chip_smoke.py"),
-                                "--tenant", str(out)]}
-            env = _api(url, "/api/v1/workers", "POST", spec)["status"]["env"]
-            for key, want in (("CUDA_VISIBLE_DEVICES", "0"),
-                              ("CUDA_DEVICE_ORDER", "PCI_BUS_ID")):
-                if env.get(key) != want:
-                    raise RuntimeError(f"{pod}'s env has {key}={env.get(key)!r}")
-            tenants[pod] = {"out": out, "duty": duty, "qos": qos,
-                            "view": ShmView(env["TPF_SHM_PATH"])}
+        tenants = _submit_tenants(url, chip, work, "--tenant", hv_build.cuda_hook_path())
         _node_wait_for_calls(tenants, daemon)
         t_start, t_end, samples, api_samples, freeze = _node_window(url, provider, tenants)
-        final = _node_drain(url, tenants)
+        final = _node_stop(daemon, tenants)
         pids = {p for s in samples for seg in s.values() for p in seg["pids"]}
         pids |= {l["start"] for f in final.values() for l in f["lines"] if "start" in l}
         for pod in tenants:
@@ -2914,13 +3133,16 @@ def phase_node(torch, hardware, hv_build, limiter_lib, name, smi):
 
 def _node_report(tenants, t_start, t_end, samples, api_samples, freeze, final,
                  peak_mflops):
-    """The node line's numbers, and its checks (each failure raises)."""
+    """The node line's numbers, and its checks (each failure raises).  The
+    launch hook charges the tenants' device time, so the client's own
+    estimate no longer reaches the segment: each segment must hold exactly
+    the hook's admitted charges, while the client counted every call."""
     window = t_end - t_start
     out, checks = {}, {}
     nvml_pids = {pid for a in api_samples for pid, _, _ in a["nvml_procs"]}
     for pod, t in tenants.items():
         lines = final[pod]["lines"]
-        seg = final[pod]["segment"]
+        seg, stopped = final[pod]["segment"], final[pod]["stopped"]
         check = next(l["check"] for l in lines if "check" in l)
         calls = [l for l in lines if "t1" in l]
         per_call = check["mflop_per_call"]
@@ -2928,7 +3150,9 @@ def _node_report(tenants, t_start, t_end, samples, api_samples, freeze, final,
         in_window = [l for l in calls if l["t1"] > t_start and l["t0"] < t_end]
         busy = sum(min(l["t1"], t_end) - max(l["t0"], t_start) for l in in_window)
         charged = series[-1]["charged"] - series[0]["charged"]
-        bound = _bucket_bound(series, per_call)
+        # the hook pays a call's device time at the call's next launches:
+        # one charge is at most a call's wall time at the peak
+        bound = _bucket_bound(series, max(l["t1"] - l["t0"] for l in calls) * peak_mflops)
         shares = [s["refill"] / peak_mflops for s in series]
         statuses = [w["status"] for a in api_samples for w in a["workers"]
                     if w["spec"]["name"] == pod]
@@ -2944,10 +3168,12 @@ def _node_report(tenants, t_start, t_end, samples, api_samples, freeze, final,
             "charged_tflop_per_s": charged / window / 1e6,
             "wall_share_in_calls": busy / window,
             "segment_launches": seg["launches"], "segment_charged_mflop": seg["charged"],
-            "client_launches": calls[-1]["launches"],
-            "client_charged_mflop": calls[-1]["mflop"],
+            "hook": stopped["hook"], "client_by_hook": check["client_by_hook"],
+            "client_launches": stopped["launches"],
+            "client_charged_mflop": stopped["mflop"],
+            "reserved_bytes": stopped["reserved"], "segment_hbm_used_bytes": seg["hbm_used"],
             "blocked_events_in_window": series[-1]["blocked"] - series[0]["blocked"],
-            "blocked_s": calls[-1]["blocked_s"],
+            "blocked_s": stopped["blocked_s"],
             "window_charged_mflop": charged, "bucket_bound_mflop": bound,
             "refill_share": {"first": shares[0], "median": sorted(shares)[len(shares) // 2],
                              "last": shares[-1], "min": min(shares), "max": max(shares)},
@@ -2957,12 +3183,15 @@ def _node_report(tenants, t_start, t_end, samples, api_samples, freeze, final,
             "nvml_duty_pct_mean": sum(s["duty_cycle_pct"] for s in statuses) / len(statuses),
             "nvml_hbm_bytes_max": max(s["hbm_used_bytes"] for s in statuses),
             "nvml_pids_match": bool(tenant_pids & nvml_pids),
-            "flash_launches": calls[-1]["flash"],
+            "flash_launches": stopped["flash"],
         }
         checks[f"{pod}_one_start"] = out[pod]["starts"] == 1
         checks[f"{pod}_bit_equal"] = check["bit_equal"] is True
-        checks[f"{pod}_every_call_charged"] = (
-            seg["launches"] == made and seg["charged"] == made * per_call)
+        checks[f"{pod}_charged_once"] = (
+            check["client_by_hook"] and stopped["launches"] == made
+            and seg["launches"] == stopped["hook"]["charges"] > 0
+            and seg["charged"] == stopped["hook"]["charged_mflops"] > 0)
+        checks[f"{pod}_all_windowed"] = _all_windowed(stopped["hook"])
         checks[f"{pod}_bucket_bound"] = charged <= bound
     hi_after = [l for l in final["hi"]["lines"] if "t0" in l and l["t0"] >= freeze["t_resume"]]
     checks["hi_frozen"] = freeze["launches_at_resume"] - freeze["launches_at_freeze"] <= 1
@@ -2992,6 +3221,317 @@ def _node_report(tenants, t_start, t_end, samples, api_samples, freeze, final,
     return report
 
 
+# -- interception: unmodified tenants metered by the launch hook alone --------
+
+
+def _host_segment(limiter_lib, work, pods):
+    """Uncontended worker segments ``intercept/<pod>`` under ``work`` (full
+    duty, a bucket no call empties, no memory limit), made through the
+    limiter's hypervisor face from a copy of the library; their paths."""
+    from tensorfusion_tpu_torch.hypervisor import DeviceQuota, Limiter
+
+    (work / "host").mkdir(parents=True, exist_ok=True)
+    host = Limiter(str(shutil.copy2(limiter_lib, work / "host" / Path(limiter_lib).name)))
+    host.init(str(work / "shm"))
+    for pod in pods:
+        host.create_worker("intercept", pod, [DeviceQuota(0, "gpu-0", 10000, 0, 10**15,
+                                                          10**15)])
+    return {pod: str(work / "shm" / "intercept" / pod) for pod in pods}
+
+
+def _hook_env(hook_lib, limiter_lib, shm_path, peak_mflops):
+    """What the node agent gives a soft worker for the launch hook
+    (``WorkerController._inject_mandatory_metering``)."""
+    import os
+
+    return {**os.environ, "LD_PRELOAD": str(hook_lib), "TPF_SHM_PATH": shm_path,
+            "TPF_LIMITER_LIB": str(limiter_lib), "TPF_DEVICE_INDEX": "0",
+            "TPF_PEAK_MFLOPS": repr(peak_mflops)}
+
+
+def _child(mode, out, env, timeout=600):
+    """``chip_smoke.py mode out`` in a child process; it must succeed."""
+    r = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), mode, str(out)], env=env,
+                       cwd=str(REPO), capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise RuntimeError(f"{mode} failed (exit {r.returncode}):\n{r.stdout[-3000:]}"
+                           f"{r.stderr[-3000:]}")
+
+
+def _intercept_probe(torch, fa, hook_lib, limiter_lib, work, peak_mflops):
+    """Part a: the driver entries a forward, a train step, graph capture
+    and replay and direct flash calls reach under the hook; the flash
+    output under the hook against the same call in this process."""
+    from tensorfusion_tpu_torch.hypervisor import ShmView
+
+    out = work / "probe"
+    shm = _host_segment(limiter_lib, out, ["probe"])["probe"]
+    _child("--probe", out, _hook_env(hook_lib, limiter_lib, shm, peak_mflops))
+    probe = json.loads((out / "probe.json").read_text())
+    parts = probe["parts"]
+
+    def reached(part, prefix):
+        return sum(n for entry, n in parts[part]["entries"].items() if entry.startswith(prefix))
+
+    q, k, v = _probe_inputs(torch)
+    want = fa.flash_fwd_cuda(q, k, v, PROBE_FLASH_SHAPE[-1] ** -0.5, True)[0].cpu()
+    view = ShmView(shm)
+    seg = _read_segment(view)
+    view.close()
+    report = probe["report"]
+    checks = {
+        "flash_reached": reached("flash_direct", "cuLaunchKernel") >= PROBE_FLASH_CALLS,
+        "replays_reached": reached("graph_replay", "cuGraphLaunch") >= PROBE_DECODES,
+        "flash_bit_equal": torch.equal(torch.load(out / "flash_out.pt"), want),
+        "forward_reached": parts["forward"]["launches"] > 0,
+        "train_step_reached": parts["train_step"]["launches"] > 0,
+        "capture_not_charged": parts["graph_capture"]["captured"] > 0,
+        "segment_is_the_hook": (seg["launches"] == report["charges"]
+                                and seg["charged"] == report["charged_mflops"] > 0),
+    }
+    result = {"parts": parts, "graphs": probe["graphs"],
+              "resolution": {k: report[k] for k in ("wrapped_by_gpa", "wrapped_by_dlsym")},
+              "totals": {k: report[k] for k in HOOK_FIELDS}, "checks": checks}
+    if not all(checks.values()):
+        raise RuntimeError(f"the probe failed: {result}")
+    return result
+
+
+def _intercept_overhead(hook_lib, limiter_lib, work, peak_mflops):
+    """Part b: tiny launches and the Llama-3-8B forward without and with
+    the hook (uncontended), in four children: plain, hooked, hooked,
+    plain."""
+    import os
+    import statistics
+
+    shm = _host_segment(limiter_lib, work / "overhead", ["overhead"])["overhead"]
+    runs = []
+    for hooked in (False, True, True, False):
+        out = work / "overhead" / f"run{len(runs)}"
+        env = _hook_env(hook_lib, limiter_lib, shm, peak_mflops) if hooked else dict(os.environ)
+        _child("--overhead", out, env)
+        run = json.loads((out / "overhead.json").read_text())
+        if run["hooked"] != hooked:
+            raise RuntimeError(f"overhead run {len(runs)} hooked={run['hooked']}, not {hooked}")
+        runs.append(run)
+    side = {h: [r for r in runs if r["hooked"] == h] for h in (False, True)}
+    tiny = {h: statistics.median(r["tiny_us"] for r in side[h]) for h in side}
+    fwd = {h: statistics.median(ms for r in side[h] for ms in r["forward_ms"]) for h in side}
+    result = {"tiny_us": {"plain": tiny[False], "hooked": tiny[True]},
+              "hook_us_per_launch": tiny[True] - tiny[False],
+              "forward_ms": {"plain": fwd[False], "hooked": fwd[True]},
+              "forward_ratio": fwd[True] / fwd[False],
+              "runs": [{k: r[k] for k in ("hooked", "tiny_us", "tiny_us_rounds", "forward_ms")}
+                       for r in runs],
+              "hooked_launches": [r["report"]["launches"] for r in side[True]],
+              "order": "plain, hooked, hooked, plain"}
+    if result["forward_ratio"] > 1.03:
+        raise RuntimeError(f"the hook slows the forward more than 3%: {result}")
+    return result
+
+
+def _intercept_alone(hook_lib, limiter_lib, work, peak_mflops):
+    """Part c: one raw tenant alone under an uncontended segment for
+    INTERCEPT_ALONE_S: its charged device-seconds against its time in
+    calls."""
+    from tensorfusion_tpu_torch.hypervisor import ShmView
+
+    shm = _host_segment(limiter_lib, work / "alone", ["alone"])["alone"]
+    out = work / "alone" / "tenant"
+    proc = subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--tenant-raw",
+                             str(out)], env=_hook_env(hook_lib, limiter_lib, shm, peak_mflops),
+                            cwd=str(REPO), stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    view = ShmView(shm)
+    try:
+        deadline = time.monotonic() + NODE_START_TIMEOUT_S
+        while not any("t1" in l for l in _tenant_lines(out)):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError("the lone tenant made no call:\n" + _tail(out / "tenant.log"))
+            time.sleep(0.5)
+        time.sleep(INTERCEPT_ALONE_S)
+        (out / "stop").touch()
+        deadline = time.monotonic() + NODE_STOP_TIMEOUT_S
+        while not any("stopped" in l for l in _tenant_lines(out)):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError("the lone tenant did not stop:\n" + _tail(out / "tenant.log"))
+            time.sleep(0.2)
+        seg = _read_segment(view)
+    finally:
+        view.close()
+        proc.kill()
+        proc.wait()
+    lines = _tenant_lines(out)
+    check = next(l["check"] for l in lines if "check" in l)
+    stopped = next(l for l in lines if "stopped" in l)
+    calls = [l for l in lines if "t1" in l]
+    # the charges between the first call's record and the last one's pay
+    # for the calls between them, one call late (a call's windows are read
+    # at the next call's launches)
+    in_calls = sum(l["t1"] - l["t0"] for l in calls[1:])
+    charged_s = (calls[-1]["hook"]["charged_mflops"] - calls[0]["hook"]["charged_mflops"]) \
+        / peak_mflops
+    result = {"calls": len(calls), "time_in_calls_s": in_calls, "charged_device_s": charged_s,
+              "charged_over_calls": charged_s / in_calls,
+              "device_s_read": (calls[-1]["hook"]["device_us"]
+                                - calls[0]["hook"]["device_us"]) / 1e6,
+              "call_ms_median": sorted((l["t1"] - l["t0"]) * 1e3 for l in calls)[len(calls) // 2],
+              "hook": stopped["hook"], "reserved_bytes": stopped["reserved"],
+              "segment_hbm_used_bytes": seg["hbm_used"], "flash_launches": stopped["flash"],
+              "checks": {"unmodified": check["client_runtime_imported"] is False,
+                         "within_10pct": abs(charged_s / in_calls - 1.0) <= 0.10,
+                         "segment_is_the_hook": (
+                             seg["launches"] == stopped["hook"]["charges"]
+                             and seg["charged"] == stopped["hook"]["charged_mflops"] > 0),
+                         "memory_covers_reserved": (stopped["hook"]["hbm_charged_bytes"]
+                                                    >= stopped["reserved"] > 0),
+                         "all_windowed": _all_windowed(stopped["hook"])}}
+    if not all(result["checks"].values()):
+        raise RuntimeError(f"the lone tenant's charges failed: {result}")
+    return result
+
+
+def _intercept_pair(hv_build, limiter_lib, work, peak_mflops, solo_call_s):
+    """Part d: ``default/lo`` (25%, low) and ``default/hi`` (75%, high), raw
+    tenants spawned by the daemon, metered by the hook alone for
+    INTERCEPT_WINDOW_S with no freeze; the daemon's tick times.  A call's
+    device time alone (``solo_call_s``, from part c) prices the work each
+    tenant did, against what it was charged."""
+    from tensorfusion_tpu_torch.hypervisor import Provider, list_worker_segments
+
+    work.mkdir(parents=True, exist_ok=True)
+    provider_lib = hv_build.provider_path()
+    provider = Provider(str(provider_lib))
+    provider.init()
+    daemon, url = _start_daemon(provider_lib, limiter_lib, work)
+    tenants = {}
+    try:
+        chip = _api(url, "/api/v1/devices")[0]["info"]["chip_id"]
+        tenants = _submit_tenants(url, chip, work, "--tenant-raw", hv_build.cuda_hook_path())
+        _node_wait_for_calls(tenants, daemon)
+        t_start, t_end, samples, api_samples, _ = _node_window(
+            url, provider, tenants, INTERCEPT_WINDOW_S, freeze_pod=None)
+        ticks = _api(url, "/api/v1/ticks")
+        final = _node_stop(daemon, tenants)
+        pids = {l["start"] for f in final.values() for l in f["lines"] if "start" in l}
+        for pod in tenants:
+            _api(url, f"/api/v1/workers/default/{pod}", "DELETE")
+    finally:
+        for t in tenants.values():
+            t["view"].close()
+        _stop(daemon)
+        provider.shutdown()
+    left = list_worker_segments(str(work / "shm"))
+    alive = sorted(p for p in pids if Path(f"/proc/{p}").exists())
+    if left or alive:
+        raise RuntimeError(f"after DELETE: segments {left}, tenant processes {alive}")
+    return _intercept_report(tenants, t_start, t_end, samples, api_samples, final, ticks,
+                             peak_mflops, solo_call_s)
+
+
+def _intercept_report(tenants, t_start, t_end, samples, api_samples, final, ticks,
+                      peak_mflops, solo_call_s):
+    """Part d's numbers, and its checks (each failure raises): the card's
+    NVML duty is held to INTERCEPT_MIN_DUTY; the split is recorded."""
+    window = t_end - t_start
+    out, checks = {}, {}
+    for pod, t in tenants.items():
+        lines = final[pod]["lines"]
+        seg, stopped = final[pod]["segment"], final[pod]["stopped"]
+        check = next(l["check"] for l in lines if "check" in l)
+        calls = [l for l in lines if "t1" in l]
+        series = [s[pod] for s in samples]
+        in_window = [l for l in calls if l["t1"] > t_start and l["t0"] < t_end]
+        busy = sum(min(l["t1"], t_end) - max(l["t0"], t_start) for l in in_window)
+        charged = series[-1]["charged"] - series[0]["charged"]
+        shares = [s["refill"] / peak_mflops for s in series]
+        statuses = [w["status"] for a in api_samples for w in a["workers"]
+                    if w["spec"]["name"] == pod]
+        n_calls = sum(1 for l in calls if t_start <= l["t1"] <= t_end)
+        out[pod] = {
+            "duty_percent": t["duty"], "qos": t["qos"],
+            "starts": sum("start" in l for l in lines),
+            "client_runtime_imported": check["client_runtime_imported"],
+            "peak_mflops": check["peak_mflops"],
+            "calls_in_window": n_calls,
+            "tokens_per_s": n_calls * NODE_SHAPE[0] * NODE_SHAPE[1] / window,
+            "wall_share_in_calls": busy / window,
+            "charged_device_s": charged / peak_mflops,
+            "charged_share_of_window": charged / peak_mflops / window,
+            # the card time its calls would take alone, and what it paid for it
+            "work_device_s": n_calls * solo_call_s,
+            "charged_over_work": charged / peak_mflops / max(n_calls * solo_call_s, 1e-9),
+            "segment_launches": seg["launches"], "segment_charged_mflop": seg["charged"],
+            "hook": stopped["hook"],
+            "blocked_events_in_window": series[-1]["blocked"] - series[0]["blocked"],
+            "reserved_bytes": stopped["reserved"], "segment_hbm_used_bytes": seg["hbm_used"],
+            "refill_share": {"first": shares[0], "median": sorted(shares)[len(shares) // 2],
+                             "last": shares[-1], "min": min(shares), "max": max(shares)},
+            "erl_settle_s": _settle_s([(s["t"] - t_start, s["refill"]) for s in series]),
+            "nvml_duty_pct_mean": sum(s["duty_cycle_pct"] for s in statuses) / len(statuses),
+            "flash_launches": stopped["flash"],
+        }
+        checks[f"{pod}_one_start"] = out[pod]["starts"] == 1
+        checks[f"{pod}_unmodified"] = check["client_runtime_imported"] is False
+        checks[f"{pod}_metered_by_hook"] = (
+            seg["launches"] == stopped["hook"]["charges"] > 0
+            and seg["charged"] == stopped["hook"]["charged_mflops"] > 0
+            and stopped["hook"]["device_us"] > 0)
+        checks[f"{pod}_memory_charged"] = (
+            seg["hbm_used"] > 0 and stopped["hook"]["hbm_charged_bytes"] >= stopped["reserved"])
+        checks[f"{pod}_all_windowed"] = _all_windowed(stopped["hook"])
+    lo_calls, hi_calls = out["lo"]["calls_in_window"], out["hi"]["calls_in_window"]
+    metrics = [a["devices"][0]["metrics"] for a in api_samples]
+    duty = sum(m["duty_cycle_pct"] for m in metrics) / len(metrics)
+    split_lo = lo_calls / max(lo_calls + hi_calls, 1)
+    tick_ms = sorted(ms for t, ms in ticks if t_start <= t <= t_end)
+    checks["duty_at_least_90"] = duty >= INTERCEPT_MIN_DUTY
+    report = {
+        "tenants": out,
+        "split_lo_hi": [split_lo, 1.0 - split_lo],
+        "split_basis": "completed calls in the window (every call is the same forward)",
+        "charged_split_lo": out["lo"]["charged_device_s"]
+        / max(out["lo"]["charged_device_s"] + out["hi"]["charged_device_s"], 1e-9),
+        "work_share_of_window": (out["lo"]["work_device_s"] + out["hi"]["work_device_s"])
+        / window,
+        "lo_in_band": INTERCEPT_LO_BAND[0] <= split_lo <= INTERCEPT_LO_BAND[1],
+        "device": {"duty_pct_mean": duty,
+                   "power_w_mean": sum(m["power_watts"] for m in metrics) / len(metrics)},
+        "tick_ms": {"p50": tick_ms[len(tick_ms) // 2],
+                    "p99": tick_ms[min(int(0.99 * (len(tick_ms) - 1)), len(tick_ms) - 1)],
+                    "max": tick_ms[-1], "n": len(tick_ms)},
+        "window_s": window, "samples": len(samples), "api_samples": len(api_samples),
+        "checks": checks}
+    if not all(checks.values()) or not tick_ms:
+        raise RuntimeError(f"intercept checks failed: {report}")
+    return report
+
+
+def phase_intercept(torch, fa, hardware, hv_build, limiter_lib, name, smi):
+    """Mandatory metering by the launch hook (``hypervisor/csrc/cuda_hook.c``)
+    of tenants that never import the client runtime: a probe of what it
+    intercepts (a), its overhead (b), its charge accuracy alone (c), and
+    two raw tenants under the daemon (d).  Returns the tenants' kernel
+    launches (parts c and d)."""
+    t_phase = time.perf_counter()
+    work = WORK / "intercept"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    peak_mflops = hardware.peak_rates(name)["bf16"] / 1e6
+    hook_lib = hv_build.cuda_hook_path()
+    probe = _intercept_probe(torch, fa, hook_lib, limiter_lib, work, peak_mflops)
+    emit("intercept_probe", **probe)
+    overhead = _intercept_overhead(hook_lib, limiter_lib, work, peak_mflops)
+    alone = _intercept_alone(hook_lib, limiter_lib, work, peak_mflops)
+    pair = _intercept_pair(hv_build, limiter_lib, work / "pair", peak_mflops,
+                           alone["call_ms_median"] / 1e3)
+    emit("intercept", overhead=overhead, alone=alone, **pair, peak_mflops=peak_mflops,
+         nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
+    launches = {k: 0 for k in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
+    launches["flash_attn_fwd"] = alone["flash_launches"] + sum(
+        t["flash_launches"] for t in pair["tenants"].values())
+    return launches
+
+
 def phase_bench_train(bench_train, limiter_lib):
     """The metered train-step bench at its own configuration."""
     result = bench_train.run(limiter_lib=str(limiter_lib))
@@ -3012,8 +3552,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    if sys.argv[1:2] == ["--tenant"]:
-        return tenant_main(Path(sys.argv[2]))
+    children = {"--tenant": tenant_main, "--tenant-raw": tenant_raw_main,
+                "--probe": probe_main, "--overhead": overhead_main}
+    if sys.argv[1:2] and sys.argv[1] in children:
+        return children[sys.argv[1]](Path(sys.argv[2]))
     from tensorfusion_tpu_torch import (bench_train, hardware, ops, parallel, remoting,
                                         serving)
     from tensorfusion_tpu_torch.hypervisor import _build as hv_build
@@ -3032,6 +3574,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # while this process holds almost nothing: two 8B tenants share the card
     node_launches = phase_node(torch, hardware, hv_build, limiter_lib, name, smi)
+    intercept_launches = phase_intercept(torch, fa, hardware, hv_build, limiter_lib, name, smi)
 
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attn_impl="flash")
     params, serve_launches = phase_serve(torch, ops, llama, bench_train,
@@ -3079,7 +3622,7 @@ def main() -> int:
                 + engine_launches[k.name] + remote_launches[k.name]
                 + remote_serve_launches[k.name] + fed_launches[k.name]
                 + mig_launches[k.name] + mesh_launches[k.name]
-                + node_launches[k.name],
+                + node_launches[k.name] + intercept_launches[k.name],
                 "launches_by_path": {"serve": serve_launches[k.name],
                                      "train": train_launches[k.name],
                                      "engine": engine_launches[k.name],
@@ -3088,7 +3631,8 @@ def main() -> int:
                                      "federation": fed_launches[k.name],
                                      "migrate": mig_launches[k.name],
                                      "mesh": mesh_launches[k.name],
-                                     "node": node_launches[k.name]},
+                                     "node": node_launches[k.name],
+                                     "intercept": intercept_launches[k.name]},
                 **{key: rows[k.name][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "plain", "library", "pair_ms")

@@ -18,7 +18,12 @@ Counterpart of ``tensorfusion_tpu/client/runtime.py``, keeping its names
   and a frozen worker blocks at its next launch until thawed;
 - device memory is charged once per signature, as the peak-allocation
   growth of the first call on the card, and released when the metered
-  callable is dropped.
+  callable is dropped;
+- in a process that the node agent started with its launch and memory
+  hook (``hypervisor/csrc/cuda_hook.c``) preloaded and attached, the hook
+  charges every launch and allocation itself, so the client charges the
+  limiter nothing: it keeps its own counters and still waits out a
+  freeze.  Without the hook it is the metering path, as in the reference.
 
 Not in this slice: ``activate()`` (global patching), the live-memory
 sampler and host spill.
@@ -43,6 +48,7 @@ from torch.utils.flop_counter import (FlopCounterMode, flop_registry,
 
 from .. import constants
 from ..device import DeviceLike, resolve_device
+from ..hypervisor import cuda_hook_binding
 from ..hypervisor.limiter_binding import Limiter
 
 log = logging.getLogger("tpf_torch.client")
@@ -113,6 +119,8 @@ class VTPUClient:
             constants.ENV_HYPERVISOR_URL)
         self.device_index = device_index
         self.limiter: Optional[Limiter] = None
+        #: the preloaded launch and memory hook, when it meters this process
+        self.hook: Optional[cuda_hook_binding.CudaHook] = None
         self.attached = False
         self._lock = threading.Lock()
         # telemetry
@@ -147,6 +155,15 @@ class VTPUClient:
         if not self.shm_path:
             log.info("no shm segment configured; metering disabled")
             return
+        hook = cuda_hook_binding.loaded()
+        if (hook is not None and self.shm_path == os.environ.get(constants.ENV_SHM_PATH)
+                and hook.metered()):
+            # the hook attached to the segment and registered this pid
+            self.hook = hook
+            self.attached = True
+            log.info("metering by the preloaded launch hook (segment %s)",
+                     self.shm_path)
+            return
         try:
             self.limiter = Limiter(self.limiter_lib)
             self.limiter.attach(self.shm_path)
@@ -159,7 +176,9 @@ class VTPUClient:
             self.limiter = None
 
     def close(self) -> None:
-        if self.limiter is not None and self.attached:
+        if self.hook is not None:
+            self.attached = False
+        elif self.limiter is not None and self.attached:
             self.limiter.detach()
             self.attached = False
 
@@ -169,6 +188,17 @@ class VTPUClient:
         """Charge one launch; blocks (sleeping the limiter's wait hints)
         until admitted.  No-op when unmetered."""
         if not self.attached or mflops <= 0:
+            return
+        if self.hook is not None:
+            # the hook charges the launches themselves: count, and honour
+            # a freeze before the call
+            while self.hook.frozen():
+                with self._lock:
+                    self.blocked_time_s += 0.01
+                time.sleep(0.01)
+            with self._lock:
+                self.launches += 1
+                self.charged_mflops += mflops
             return
         while True:
             r = self.limiter.charge_compute(self.device_index, mflops)
@@ -185,6 +215,10 @@ class VTPUClient:
     def charge_hbm(self, delta_bytes: int) -> bool:
         if not self.attached or delta_bytes == 0:
             return True
+        if self.hook is not None:          # the hook charges allocations
+            with self._lock:
+                self.hbm_charged_bytes += delta_bytes
+            return True
         r = self.limiter.charge_hbm(self.device_index, delta_bytes)
         if not r.allowed:
             log.warning("device memory budget denied: wanted %+d, "
@@ -195,6 +229,8 @@ class VTPUClient:
         return True
 
     def frozen(self) -> bool:
+        if self.hook is not None:
+            return self.attached and self.hook.frozen()
         return bool(self.attached and self.limiter.worker_frozen())
 
     # -- metering wrapper --------------------------------------------------

@@ -34,6 +34,13 @@ ENV_DEVICE_MOUNTS = "TPF_DEVICE_MOUNTS"        # mount-policy host paths
 ENV_HBM_HOST_SPILL = "TPF_HBM_HOST_SPILL"      # bytes the client must offload
 ENV_HYPERVISOR_TOKEN = "TPF_HYPERVISOR_TOKEN"  # the node agent's API token
 ENV_NVML_LIB = "TPF_NVML_LIB"                  # NVML provider: libnvidia-ml path
+ENV_LIVE_HBM_INTERVAL = "TPF_LIVE_HBM_S"       # live-memory sampling period
+#: the launch and memory hook (hypervisor/csrc/cuda_hook.c), preloaded into
+#: every soft worker: the segment's device slot, and the card's peak that
+#: turns a device-second into MFLOPs (the unit the buckets refill in)
+ENV_LD_PRELOAD = "LD_PRELOAD"
+ENV_DEVICE_INDEX = "TPF_DEVICE_INDEX"
+ENV_PEAK_MFLOPS = "TPF_PEAK_MFLOPS"
 
 DEFAULT_HYPERVISOR_PORT = 8000
 

@@ -4,6 +4,8 @@ tensorfusion_tpu/hypervisor/server.py.
 - ``GET  /api/v1/devices``            device inventory + metrics
 - ``GET  /api/v1/workers``            tracked workers + status
 - ``GET  /api/v1/node``, ``/api/v1/topology``, ``/api/v1/allocations``
+- ``GET  /api/v1/ticks``              the metering loop's last ticks
+  (``[end time on time.monotonic(), host ms]`` each)
 - ``GET  /api/v1/dispatch``, ``/api/v1/profile``, ``/api/v1/serving``
   the co-hosted ``remoting.RemoteVTPUWorker``s' dispatch, attribution
   and serving-engine snapshots
@@ -280,6 +282,9 @@ class HypervisorServer:
             h._send(200, _to_jsonable(topo) if topo else {})
         elif url.path == "/api/v1/node":
             h._send(200, _to_jsonable(self.devices.node_info()))
+        elif url.path == "/api/v1/ticks":
+            # the metering loop's own cost: [end time (monotonic), host ms]
+            h._send(200, list(self.workers.tick_samples))
         elif url.path == "/api/v1/workers":
             out = [{"spec": _to_jsonable(w.spec),
                     "status": _to_jsonable(w.status)}

@@ -5,19 +5,30 @@ from backend events, a shm segment per soft worker, a sync loop with
 heartbeats and memory sync, orphaned-segment cleanup, and the ERL update
 loop.  Each tick samples per-process duty and memory from the provider
 (NVML's on the card), feeds the pure ERL PID controller, and pushes the
-resulting refill rates into each worker's token buckets.
+resulting refill rates into each worker's token buckets.  Each soft
+worker runs with the launch and memory hook (``csrc/cuda_hook.c``) in its
+``LD_PRELOAD``, which charges its launches in device time against those
+buckets whether or not it uses the client runtime.  Where the device time
+charged on a card exceeds the time the card was busy (tenants that
+time-slice it each pay for the slices they waited through), each charged
+worker's refill is raised by its part of the excess; where the provider
+cannot tell a process's duty, the ERL reads each worker's from its
+charges.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import os
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from .. import constants
 from ..clock import Clock, default_clock
+from . import _build
 from .allocation import AllocationController, WorkerAllocation
 from .device import DeviceController
 from .erl import AutoFreezeRule, ERLParameters, ERLQuotaController, Observation
@@ -26,6 +37,21 @@ from .limiter_binding import (DeviceQuota, Limiter, LimiterError, ShmView,
                               list_worker_segments)
 
 log = logging.getLogger("tpf.hypervisor.worker")
+
+# smoothing of a card's charged and busy shares, a tick at a time
+OVERLAP_ALPHA = 0.1
+# a worker charged less than this part of its card's charges has no part
+# of the excess
+OVERLAP_PAYING_FLOOR = 0.01
+
+
+@dataclass
+class _CardCharges:
+    """One card's smoothed shares (device-seconds a second): the time the
+    card was busy (NVML's duty) and each soft worker-device's charges."""
+
+    busy: float = 0.0
+    charged: Dict[tuple, float] = field(default_factory=dict)
 
 
 @dataclass
@@ -36,6 +62,7 @@ class TrackedWorker:
     shm_path: str = ""
     view: Optional[ShmView] = None
     last_blocked: Dict[int, int] = field(default_factory=dict)
+    last_charged: Dict[int, int] = field(default_factory=dict)
     last_active_ts: float = 0.0    # stamped by WorkerController's clock
     auto_frozen: bool = False
 
@@ -64,6 +91,10 @@ class WorkerController:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._last_tick = self.clock.monotonic()
+        # guarded by: the tick's caller (one thread)
+        self._cards: Dict[str, _CardCharges] = {}
+        #: (time.monotonic() at its end, host ms) of the loop's last ticks
+        self.tick_samples = collections.deque(maxlen=4096)
         self.limiter.init(shm_base)
 
     # -- lifecycle --------------------------------------------------------
@@ -80,10 +111,13 @@ class WorkerController:
 
     def _loop(self) -> None:
         while not self._stop.wait(self.tick_interval_s):
+            t0 = time.perf_counter()
             try:
                 self.tick()
             except Exception:
                 log.exception("worker sync tick failed")
+            self.tick_samples.append((time.monotonic(),
+                                      (time.perf_counter() - t0) * 1e3))
 
     # -- worker lifecycle (backend event handlers) ------------------------
 
@@ -136,6 +170,9 @@ class WorkerController:
             except LimiterError:
                 log.warning("shm segment for %s already gone", worker_key)
         self.erl.forget(worker_key)
+        for card in self._cards.values():
+            for key in [k for k in card.charged if k[0] == worker_key]:
+                del card.charged[key]
         self.allocator.release(worker_key)
         log.info("worker %s removed", worker_key)
 
@@ -186,16 +223,30 @@ class WorkerController:
                                         spec.name)
         tracked.view = ShmView(tracked.shm_path)
         tracked.status.env[constants.ENV_SHM_PATH] = tracked.shm_path
-        self._inject_mandatory_metering(tracked.status.env)
+        self._inject_mandatory_metering(tracked)
 
-    def _inject_mandatory_metering(self, env: Dict[str, str]) -> None:
-        """Point the worker's client runtime at this node's limiter.  The
-        reference also points an unmodified JAX process's PJRT plugin at
-        its interception proxy; CUDA has no such proxy until the
-        cuLaunchKernel / cuMemAlloc interception is ported, so a worker
-        is metered only through the client runtime."""
-        # absolute path: the worker process may run with any cwd
+    def _inject_mandatory_metering(self, tracked: TrackedWorker) -> None:
+        """Preload the launch and memory hook into the worker, so that an
+        unmodified CUDA process is metered: it charges each launch's
+        device time at the card's peak (the unit of the refill above) and
+        the device memory it allocates, against the worker's segment.
+        The client runtime stays the path of a process without the hook,
+        and does not charge twice in one with it (the reference points
+        PJRT's plugin discovery at its interception proxy instead)."""
+        env = tracked.status.env
+        # absolute paths: the worker process may run with any cwd
         env[constants.ENV_LIMITER_LIB] = os.path.abspath(self.limiter.lib_path)
+        binding = tracked.allocation.bindings[0] if tracked.allocation.bindings else None
+        entry = self.devices.get(binding.chip_id) if binding else None
+        env[constants.ENV_DEVICE_INDEX] = str(binding.device_index if binding else 0)
+        env[constants.ENV_PEAK_MFLOPS] = repr(
+            entry.info.peak_bf16_tflops * 1e6 if entry else 1e6)
+        hook = str(_build.cuda_hook_path())
+        preload = tracked.spec.env.get(constants.ENV_LD_PRELOAD,
+                                       os.environ.get(constants.ENV_LD_PRELOAD, ""))
+        env[constants.ENV_LD_PRELOAD] = ":".join(filter(None, (hook, preload)))
+        # cooperative clients reconcile actual buffer churn periodically
+        env.setdefault(constants.ENV_LIVE_HBM_INTERVAL, "10")
 
     # -- hot loop ---------------------------------------------------------
 
@@ -223,6 +274,9 @@ class WorkerController:
             hbm_by_pid_chip[(s.pid, s.chip_id)] = s.hbm_used_bytes
 
         observations: List[Observation] = []
+        # per card: each soft worker-device's charged share this tick
+        charged: Dict[str, Dict[tuple, float]] = {}
+        peaks: Dict[str, float] = {}
         ts = int(self.clock.now())
         for w in workers:
             ns, pod = w.spec.namespace, w.spec.name
@@ -248,6 +302,7 @@ class WorkerController:
                     peak = (entry.info.peak_bf16_tflops * 1e6
                             if entry else 1e6)
                     blocked = 0
+                    mflop = 0
                     if shm_state:
                         for d in shm_state.devices:
                             if d.chip_id == b.chip_id:
@@ -255,6 +310,12 @@ class WorkerController:
                                 blocked = max(0, d.blocked_events - prev)
                                 w.last_blocked[b.device_index] = \
                                     d.blocked_events
+                                mflop = max(0, d.total_charged_mflop - w.last_charged.get(
+                                    b.device_index, 0))
+                                w.last_charged[b.device_index] = d.total_charged_mflop
+                    charged.setdefault(b.chip_id, {})[
+                        (w.spec.key, b.device_index)] = mflop / peak / dt
+                    peaks[b.chip_id] = peak
                     observations.append(Observation(
                         worker_key=w.spec.key,
                         device_index=b.device_index,
@@ -281,18 +342,78 @@ class WorkerController:
                     pass
             self._maybe_auto_freeze(w)
 
-        # 2. Drive the ERL PID controller and push refill rates.
+        # 2. Drive the ERL PID controller and push refill rates, each raised
+        # by the worker's part of its card's overcharge.
+        extra, charged_duty = self._card_shares(charged, peaks)
+        for ob in observations:
+            ob.measured_duty_pct = charged_duty.get((ob.worker_key, ob.device_index),
+                                                    ob.measured_duty_pct)
         for up in self.erl.step(observations, dt):
             ns, pod = up.worker_key.split("/", 1)
+            refill, capacity = up.refill_mflop_per_s, up.capacity_mflop
+            more = extra.get((up.worker_key, up.device_index), 0.0)
+            if more > 0:
+                capacity = int(capacity * (refill + more) / refill)
+                refill = int(refill + more)
             try:
                 self.limiter.update_quota(ns, pod, up.device_index,
-                                          up.duty_limit_bp,
-                                          up.refill_mflop_per_s,
-                                          up.capacity_mflop)
+                                          up.duty_limit_bp, refill, capacity)
             except LimiterError:
                 log.warning("quota push failed for %s", up.worker_key)
 
         self._cleanup_orphan_shm()
+
+    def _card_shares(self, charged: Dict[str, Dict[tuple, float]],
+                     peaks: Dict[str, float]) -> tuple:
+        """From each card's charged shares this tick: the MFLOP/s to add to
+        each soft worker-device's refill, and the duty % to give the ERL
+        for it where the provider cannot tell a process's duty.
+
+        The refill: the launch hook charges the span of event windows on a
+        worker's streams, and a window spans the slices in which the card
+        ran another context, so tenants that time-slice a card each pay for
+        the time they waited, and their buckets would hold the card idle.
+        The excess of the smoothed charges over NVML's smoothed duty is
+        split equally among the workers charged on the card: under
+        round-robin slicing two tenants each pay for the whole overlap and
+        each is given half of it, so the excess is exactly what each
+        overpays.  Charges below the card's busy time (the client's FLOP
+        estimates, a lone tenant) add nothing.
+
+        The duty: where NVML's per-process utilization is unsupported, each
+        worker's smoothed charged share, the time it had work on the card.
+        The ERL counts a worker that uses most of its grant as hungry; read
+        as 0, a tenant slowed by the other's slices but not by its bucket
+        would count as idle and its share would go to the other."""
+        extra: Dict[tuple, float] = {}
+        duty: Dict[tuple, float] = {}
+        cards = [chip for chip, by in charged.items()
+                 if chip in self._cards or any(by.values())]
+        if not cards:
+            return extra, duty
+        self.devices.refresh_metrics()
+        for chip in cards:
+            entry = self.devices.get(chip)
+            metrics = entry.metrics if entry is not None else None
+            busy = metrics.duty_cycle_pct / 100.0 if metrics is not None else 0.0
+            if busy <= 0.0:          # no reading: nothing to compare with
+                continue
+            card = self._cards.setdefault(chip, _CardCharges())
+            card.busy += OVERLAP_ALPHA * (busy - card.busy)
+            for key, share in charged[chip].items():
+                last = card.charged.get(key, 0.0)
+                card.charged[key] = last + OVERLAP_ALPHA * (share - last)
+            total = sum(card.charged.values())
+            paying = [k for k, v in card.charged.items()
+                      if v > OVERLAP_PAYING_FLOOR * total]
+            excess = total - card.busy
+            if excess > 0 and paying:
+                for key in paying:
+                    extra[key] = excess / len(paying) * peaks[chip]
+            if metrics.extra.get("proc_util_supported", 1.0) == 0.0:
+                for key in charged[chip]:
+                    duty[key] = min(100.0, card.charged[key] * 100.0)
+        return extra, duty
 
     # -- auto freeze/resume (schedulingconfigtemplate auto-freeze analog) -
 

@@ -25,8 +25,10 @@ from tensorfusion_tpu.api.types import AutoFreezeRule as RefAutoFreezeRule
 from tensorfusion_tpu.api.types import ERLParameters as RefERLParameters
 from tensorfusion_tpu.testing import MockProviderControl, fresh_library
 from tensorfusion_tpu_torch import constants
+from tensorfusion_tpu_torch.hypervisor import _build
 from tensorfusion_tpu_torch.hypervisor.erl import AutoFreezeRule, ERLParameters
 from tensorfusion_tpu_torch.hypervisor.mounts import DeviceMountPolicy, DeviceMountRule
+from tensorfusion_tpu_torch.hypervisor.provider_binding import ChipMetrics
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V5P = {"TPF_MOCK_GEN": "v5p", "TPF_MOCK_CHIPS": "4", "TPF_MOCK_MESH": "2x2"}
@@ -129,6 +131,23 @@ def _port_env(ref_env):
         env[constants.ENV_VISIBLE_DEVICES] = env.pop(ref_constants.ENV_VISIBLE_CHIPS)
         env[constants.ENV_DEVICE_ORDER] = constants.DEVICE_ORDER_PCI
     return env
+
+
+HOOK_ENV = (constants.ENV_LD_PRELOAD, constants.ENV_DEVICE_INDEX,
+            constants.ENV_PEAK_MFLOPS, constants.ENV_LIVE_HBM_INTERVAL)
+
+
+def _without_hook_env(port_env):
+    """A port worker's env without what preloads the launch and memory
+    hook, which the reference's env has no counterpart of here (it points
+    PJRT at its proxy only where a vendor plugin is configured); a soft
+    worker's must preload the built hook."""
+    env = dict(port_env)
+    if constants.ENV_SHM_PATH in env:
+        assert env[constants.ENV_LD_PRELOAD].split(":")[0] == str(_build.cuda_hook_path())
+        assert float(env[constants.ENV_PEAK_MFLOPS]) > 0
+        assert env[constants.ENV_LIVE_HBM_INTERVAL] == "10"
+    return {k: v for k, v in env.items() if k not in HOOK_ENV}
 
 
 # -- provider and discovery ----------------------------------------------------
@@ -423,8 +442,96 @@ def test_worker_tick_leaves_equal_segments(stacks, clock):
         for key in ("ns/a", "ns/b", "ns/c"):
             got = {side: dataclasses.asdict(stacks[side].workers.get(key).status)
                    for side in ("ref", "port")}
-            assert _port_env(got["ref"].pop("env")).keys() == got["port"].pop("env").keys()
+            assert (_port_env(got["ref"].pop("env")).keys()
+                    == _without_hook_env(got["port"].pop("env")).keys())
             assert got["port"] == got["ref"]
+
+
+class _Duty:
+    """A device controller whose one card reports a fixed NVML duty, and
+    whether NVML can tell a process's."""
+
+    def __init__(self, duty_pct, proc_util_supported):
+        self.duty_pct = duty_pct
+        self.extra = {"proc_util_supported": 1.0 if proc_util_supported else 0.0}
+
+    def refresh_metrics(self):
+        pass
+
+    def get(self, chip_id):
+        return port.DeviceEntry(info=None, metrics=ChipMetrics(
+            chip_id=chip_id, duty_cycle_pct=self.duty_pct, hbm_bw_util_pct=0.0,
+            hbm_used_bytes=0, power_watts=0.0, temp_celsius=0.0, ici_tx_bytes=0,
+            ici_rx_bytes=0, extra=self.extra))
+
+
+@pytest.mark.parametrize("case", ["time_sliced", "under_busy", "no_reading",
+                                  "one_worker_two_streams"])
+def test_worker_refill_covers_the_cards_overcharge(limiter_lib, tmp_path, case):
+    """Charges (device-time shares a tick) against the card's NVML duty:
+    what the tick adds to each worker-device's refill, once the smoothing
+    has settled, and the duty it gives the ERL where NVML cannot tell a
+    process's.  Two tenants that time-slice a fully busy card, charged
+    0.5 and 1.0 of it, overpay 0.5 together and each is given 0.25;
+    charges under the busy time, or no duty reading, add nothing; a lone
+    worker charged twice the busy time (two streams' windows overlap) is
+    given the difference, an idle one nothing."""
+    duty, supported, shares, want, want_duty = {
+        "time_sliced": (100.0, False, {"a": 0.5, "b": 1.0}, {"a": 0.25, "b": 0.25},
+                        {"a": 50.0, "b": 100.0}),
+        "under_busy": (90.0, True, {"a": 0.2, "b": 0.6}, {}, {}),
+        "no_reading": (0.0, False, {"a": 0.5, "b": 1.0}, {}, {}),
+        "one_worker_two_streams": (50.0, False, {"a": 1.0, "b": 0.0}, {"a": 0.5},
+                                   {"a": 100.0, "b": 0.0}),
+    }[case]
+    peak = 989e6
+    workers = port.WorkerController(_Duty(duty, supported), None,
+                                    port.Limiter(fresh_library(limiter_lib, f"ov{case}")),
+                                    str(tmp_path / "shm"))
+    for _ in range(120):
+        extra, got_duty = workers._card_shares(
+            {"gpu-0": {(f"ns/{k}", 0): v for k, v in shares.items()}}, {"gpu-0": peak})
+    assert sorted(extra) == sorted((f"ns/{k}", 0) for k in want)
+    for k, share in want.items():
+        assert extra[(f"ns/{k}", 0)] == pytest.approx(share * peak, rel=1e-3)
+    assert sorted(got_duty) == sorted((f"ns/{k}", 0) for k in want_duty)
+    for k, pct in want_duty.items():
+        assert got_duty[(f"ns/{k}", 0)] == pytest.approx(pct, rel=1e-3, abs=1e-6)
+
+
+def test_worker_tick_pushes_the_overcharge_into_the_refill(stacks, clock, monkeypatch):
+    """The tick adds a worker-device's part of its card's overcharge to the
+    refill the ERL gives it, and scales the bucket's capacity alike (the
+    same seconds of burst); a worker with no part keeps the ERL's.  A duty
+    read from the charges replaces the provider's in the ERL's
+    observation."""
+    s = stacks["port"]
+    chip = s.devices.devices()[0].info.chip_id
+    for name, duty in (("a", 25.0), ("b", 75.0)):
+        s.workers.add_worker(_spec(port, name, chip, duty=duty))
+    monkeypatch.setattr(s.workers, "_card_shares",
+                        lambda charged, peaks: ({("ns/a", 0): 1e6}, {("ns/b", 0): 42.0}))
+    erl_step = s.workers.erl.step
+    pushed = []
+    observed = []
+    monkeypatch.setattr(s.workers.erl, "step", lambda obs, dt: observed.append(obs)
+                        or pushed.append(erl_step(obs, dt)) or pushed[-1])
+    clock.advance(0.1)
+    s.workers.tick()
+    ups = {up.worker_key: up for up in pushed[-1]}
+    assert [ob.measured_duty_pct for ob in observed[-1]] == [0.0, 42.0]
+    seg = {k: s.workers.get(k).view.read().devices[0] for k in ("ns/a", "ns/b")}
+    a = ups["ns/a"]
+    assert seg["ns/a"].refill_mflop_per_s == int(a.refill_mflop_per_s + 1e6)
+    assert seg["ns/a"].capacity_mflop == int(
+        a.capacity_mflop * (a.refill_mflop_per_s + 1e6) / a.refill_mflop_per_s)
+    assert seg["ns/b"].refill_mflop_per_s == ups["ns/b"].refill_mflop_per_s
+    assert seg["ns/b"].capacity_mflop == ups["ns/b"].capacity_mflop
+    # a removed worker leaves no charges behind on its card
+    s.workers._cards[chip] = port.worker._CardCharges(
+        charged={("ns/a", 0): 0.5, ("ns/b", 0): 0.5})
+    s.workers.remove_worker("ns/a")
+    assert list(s.workers._cards[chip].charged) == [("ns/b", 0)]
 
 
 def test_auto_freeze_and_orphan_cleanup_equal(stacks, clock, tmp_path):
@@ -507,6 +614,8 @@ def test_http_json_equal(stacks, servers, route):
     if route == "/api/v1/workers":
         for w in got["ref"]:
             w["status"]["env"] = _port_env(w["status"]["env"])
+        for w in got["port"]:
+            w["status"]["env"] = _without_hook_env(w["status"]["env"])
     assert got["port"] == got["ref"]
 
 

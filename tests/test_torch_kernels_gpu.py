@@ -269,6 +269,61 @@ def test_memory_is_charged_once_and_released(gen, limiter_lib, tmp_path):
     client.close()
 
 
+HOOKED_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from tensorfusion_tpu_torch.hypervisor import ShmView, cuda_hook_binding
+
+x = torch.randn(4096, 4096, device="cuda")
+for _ in range(20):
+    y = (x @ x).relu_()
+torch.cuda.synchronize()
+y.sum().item()                       # a last launch: the earlier windows are read
+hook = cuda_hook_binding.loaded()
+view = ShmView(sys.argv[2])
+print(json.dumps({"reserved": torch.cuda.memory_reserved(), "hook": hook.report(),
+                  "segment_hbm_used": view.read().devices[0].hbm_used_bytes}))
+"""
+
+
+def test_hook_meters_an_unmodified_torch_child(gen, limiter_lib, tmp_path):
+    """A torch process that knows nothing of metering, started as the
+    node agent starts a worker (the launch hook preloaded, a live
+    segment): its launches and device time are charged, its device memory
+    covers what torch reserved, and its pid is registered (the reference's
+    tests/test_tpu_live.py test_proxy_meters_unmodified_jax_on_tpu)."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from tensorfusion_tpu_torch.hypervisor import DeviceQuota, Limiter, ShmView, _build
+
+    (tmp_path / "host").mkdir()
+    host = Limiter(str(shutil.copy2(limiter_lib, tmp_path / "host")))
+    host.init(str(tmp_path / "shm"))
+    host.create_worker("ns", "w", [DeviceQuota(0, "gpu-0", 10000, 0, 10**15, 10**15)])
+    shm = str(tmp_path / "shm" / "ns" / "w")
+    env = {**os.environ, "LD_PRELOAD": str(_build.cuda_hook_path()), "TPF_SHM_PATH": shm,
+           "TPF_LIMITER_LIB": str(limiter_lib), "TPF_DEVICE_INDEX": "0",
+           "TPF_PEAK_MFLOPS": "989000000"}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen([sys.executable, "-c", HOOKED_CHILD, repo, shm], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, out + err
+    got = json.loads(out.strip().splitlines()[-1])
+    hook = got["hook"]
+    assert hook["metered"] == 1
+    assert hook["launches"] > 0 and hook["device_us"] > 0 and hook["charged_mflops"] > 0
+    assert got["segment_hbm_used"] >= got["reserved"] > 0
+    state = ShmView(shm).read()
+    assert state.devices[0].launches == hook["charges"]
+    assert proc.pid in state.pids
+
+
 def _paged_setup(gen, dtype=torch.float32):
     """A small f32 model and a LlamaRunner on the card with three ragged
     sequences prefilled (tables of block size 4)."""
@@ -881,34 +936,44 @@ def test_nvml_provider_agrees_with_torch(gen):
 
 
 _TENANT = """
-import json, sys, time
+import json, os, sys, time
 sys.path.insert(0, {repo!r})
 import torch
-from tensorfusion_tpu_torch.client.runtime import VTPUClient, estimate_flops
+from tensorfusion_tpu_torch.client.runtime import VTPUClient
+from tensorfusion_tpu_torch.hypervisor import cuda_hook_binding
+log = open(sys.argv[1] + ".log", "a", buffering=1)   # the backend gives no stdout
+os.dup2(log.fileno(), 1)
+os.dup2(log.fileno(), 2)
 client = VTPUClient()
+hook = cuda_hook_binding.loaded()
 out = open(sys.argv[1], "a", buffering=1)
 if not client.attached:
     out.write(json.dumps({{"attached": False}}) + "\\n")
     sys.exit(3)
-fn = lambda x: (x @ x).relu()
-step = client.meter(fn)
+step = client.meter(lambda x: (x @ x).relu())
 x = torch.randn(2048, 2048, device="cuda")
-out.write(json.dumps({{"estimate": max(int(estimate_flops(fn, (x,), {{}}) / 1e6), 1)}})
-          + "\\n")
-while True:
+out.write(json.dumps({{"by_hook": client.hook is not None}}) + "\\n")
+stop = sys.argv[1] + ".stop"
+while not os.path.exists(stop):
     step(x)
     torch.cuda.synchronize()
-    out.write(json.dumps({{"launches": client.launches,
-                          "mflop": client.charged_mflops}}) + "\\n")
+    out.write(json.dumps({{"launches": client.launches}}) + "\\n")
     time.sleep(0.02)
+report = hook.report()
+out.write(json.dumps({{"stopped": client.launches, "charges": report["charges"],
+                      "charged_mflops": report["charged_mflops"]}}) + "\\n")
+while True:
+    time.sleep(1)
 """
 
 
 def test_soft_tenant_through_the_daemon_is_charged_for_every_call(gen, limiter_lib,
                                                                   tmp_path):
     """The port's daemon over NVML spawns a soft tenant with its
-    allocation env; frozen after a few calls, its segment has charged
-    exactly the calls the tenant made, each at the client's estimate."""
+    allocation env, the launch hook preloaded; told to stop after a few
+    calls, its segment holds exactly the hook's charges for them (every
+    call's launches, in device time), while the client counted every call
+    and charged the limiter nothing."""
     import json
     import os
     import subprocess
@@ -936,6 +1001,11 @@ def test_soft_tenant_through_the_daemon_is_charged_for_every_call(gen, limiter_l
         with urllib.request.urlopen(req, timeout=30) as r:
             return json.loads(r.read())
 
+    def why():
+        """The tenant's records and its own log, for a failing assertion."""
+        return "\n".join(p.read_text()[-3000:] for p in (calls, tmp_path / "calls.jsonl.log")
+                         if p.exists())
+
     def lines():
         out = []
         for line in calls.read_text().splitlines() if calls.exists() else []:
@@ -959,19 +1029,21 @@ def test_soft_tenant_through_the_daemon_is_charged_for_every_call(gen, limiter_l
                 "status"]["env"]
         view = ShmView(env["TPF_SHM_PATH"])
         while len(lines()) < 6:
-            assert time.time() < deadline, calls.read_text() if calls.exists() else ""
+            assert time.time() < deadline, why()
             time.sleep(0.2)
-        api("/api/v1/workers/t/w/freeze", "POST", {})
-        blocked = view.read().devices[0].blocked_events
-        # refused a charge since the freeze: every admitted call is recorded
-        while view.read().devices[0].blocked_events <= blocked:
-            assert time.time() < deadline
+        (tmp_path / "calls.jsonl.stop").touch()
+        # the tenant launches only inside its calls: once it has stopped, its
+        # segment and its last record describe the same launches
+        while not any("stopped" in line for line in lines()):
+            assert time.time() < deadline, why()
             time.sleep(0.1)
         dev = view.read().devices[0]
-        estimate = lines()[0]["estimate"]
-        made = lines()[1:]
-        assert dev.launches == len(made)
-        assert dev.total_charged_mflop == len(made) * estimate
+        last = lines()[-1]
+        made = [line for line in lines() if "launches" in line]
+        assert lines()[0] == {"by_hook": True}, why()
+        assert last["stopped"] == len(made) == made[-1]["launches"], why()
+        assert dev.launches == last["charges"] >= 2 * len(made), (dev, why())
+        assert dev.total_charged_mflop == last["charged_mflops"] > 0, (dev, why())
         view.close()
         api("/api/v1/workers/t/w", "DELETE")
         assert not os.path.exists(env["TPF_SHM_PATH"])
