@@ -11,9 +11,10 @@ provider and its launch and memory hook from the checkout (failing if
 ptxas reports a spill, or if the hand-declared NVML or CUDA driver types
 disagree with the toolkit's nvml.h or cuda.h), holds every kernel against
 its plain PyTorch version on the card and times it at the main path's
-shape and at a long one, then drives the port's ten paths at Llama-3-8B
+shape and at a long one, then drives the port's eleven paths at Llama-3-8B
 width (random weights from fixed seeds), each with the kernel launch
-counts set to 0 just before it and read just after:
+counts set to 0 just before it and read just after (a tenant's, in its
+own processes, count from 0 at their start):
 
 - the node agent (first, while this process holds almost nothing):
   provider_conformance against the NVML provider over the real NVML; the
@@ -44,6 +45,21 @@ counts set to 0 just before it and read just after:
   tick times.  In (c), (d) and the node phase no launch goes untimed for
   want of a window or uncharged for a capture.  Its launches are those of
   the tenants of (c) and (d);
+- multi-rank tenants (``shard``): the daemon spawns the sharded remote
+  worker (``python -m tensorfusion_tpu_torch.remoting --ranks 4``, its
+  devices the 4 ranks of a rank group on the card) as one soft tenant at
+  100% duty, and a client here runs (a) the 8-layer last-position
+  forward with the weights resident and replicated and the 4 x 1024
+  tokens batch-sharded, against the local call, with the flash kernel
+  launched on every rank; (b) Llama-3-8B's MLP with w1 / w3
+  column-sharded and w2 row-sharded and resident (one partial-sum
+  reduction), a shard fetched per device bit for bit, nothing resident
+  after the frees and three calls with per-call shards; (c) the tenant's
+  segment against its five processes' hook reports, exactly; then (d)
+  the mesh's fsdp2 x tp2 train step (4 layers, 4 x 1024) as a second
+  multi-rank tenant (``chip_smoke.py --mesh-tenant DIR``) for 3 steps,
+  its charges against its ranks' time outside gloo, and a rank waiting
+  in a host-staged all-reduce.  Its launches are the tenants' ranks';
 
 - serving: greedy ``generate`` requests, 32 layers, through the metered
   client;
@@ -107,7 +123,9 @@ train-step bench (``tensorfusion_tpu_torch.bench_train``).  Each phase
 prints one JSON line; any failure raises and exits non-zero.  The line
 before the last two is the kernel table (its ``launches_by_path`` has
 ``serve``, ``engine``, ``train``, ``remote``, ``remote_serve``,
-``federation``, ``migrate``, ``mesh``, ``node`` and ``intercept``), the
+``federation``, ``migrate``, ``mesh``, ``node``, ``intercept`` and
+``shard``), each phase is preceded by a ``memory`` line (what this
+process holds, before and after collecting garbage), the
 line before the last is nvidia-smi's name and power limit, and the last
 line is
 
@@ -3022,7 +3040,10 @@ def _node_window(url, provider, tenants, window_s=NODE_WINDOW_S, freeze_pod="hi"
         if freeze_pod and "t_freeze" not in freeze and now >= t_start + NODE_FREEZE_AT_S:
             _api(url, f"/api/v1/workers/default/{freeze_pod}/freeze", "POST", {})
             freeze["t_freeze"] = time.monotonic()
-            freeze["launches_at_freeze"] = _read_segment(tenants[freeze_pod]["view"])["launches"]
+            # the daemon freezes between two ticks: what the bucket holds
+            # now is what its last tick before the freeze left
+            freeze["at_freeze"] = _read_segment(tenants[freeze_pod]["view"])
+            freeze["launches_at_freeze"] = freeze["at_freeze"]["launches"]
         elif "t_resume" not in freeze and "t_freeze" in freeze \
                 and now >= freeze["t_freeze"] + NODE_FREEZE_S:
             freeze["launches_at_resume"] = _read_segment(tenants[freeze_pod]["view"])["launches"]
@@ -3196,6 +3217,18 @@ def _node_report(tenants, t_start, t_end, samples, api_samples, freeze, final,
     hi_after = [l for l in final["hi"]["lines"] if "t0" in l and l["t0"] >= freeze["t_resume"]]
     checks["hi_frozen"] = freeze["launches_at_resume"] - freeze["launches_at_freeze"] <= 1
     checks["hi_resumed"] = len(hi_after) > 0
+    # a freeze is not hunger: hi's bucket keeps its pre-freeze refill and
+    # capacity while the limiter refuses its charges.  Pre-freeze is the
+    # bucket read as the freeze returned: a tick between the last sample
+    # and the freeze may still move it, as it may any tick of a running
+    # tenant
+    hi_series = [s["hi"] for s in samples]
+    sampled = [s for s in hi_series if s["t"] < freeze["t_freeze"]][-1]
+    before = freeze["at_freeze"]
+    during = [s for s in hi_series if freeze["t_freeze"] <= s["t"] <= freeze["t_resume"]]
+    checks["hi_refill_held_while_frozen"] = max(s["refill"] for s in during) <= before["refill"]
+    checks["hi_capacity_held_while_frozen"] = \
+        max(s["capacity"] for s in during) <= before["capacity"]
     hbm = [a["devices"][0]["metrics"]["hbm_used_bytes"] for a in api_samples]
     checks["device_memory_above_32gb"] = max(hbm) > 32e9
     lo_calls, hi_calls = out["lo"]["calls_in_window"], out["hi"]["calls_in_window"]
@@ -3207,7 +3240,14 @@ def _node_report(tenants, t_start, t_end, samples, api_samples, freeze, final,
         "split_basis": "completed calls in the window (every call is the same forward)",
         "freeze": {"launches_while_frozen": freeze["launches_at_resume"]
                    - freeze["launches_at_freeze"], "calls_after_resume": len(hi_after),
-                   "seconds": freeze["t_resume"] - freeze["t_freeze"]},
+                   "seconds": freeze["t_resume"] - freeze["t_freeze"],
+                   "hi_refill_share_last_sample_before": sampled["refill"] / peak_mflops,
+                   "hi_refill_share_before": before["refill"] / peak_mflops,
+                   "hi_refill_share_while_frozen_max":
+                       max(s["refill"] for s in during) / peak_mflops,
+                   "hi_capacity_before_mflop": before["capacity"],
+                   "hi_capacity_while_frozen_max_mflop": max(s["capacity"] for s in during),
+                   "hi_blocked_while_frozen": during[-1]["blocked"] - before["blocked"]},
         "nvml": {"pids_seen": sorted(nvml_pids),
                  "proc_samples": api_samples[len(api_samples) // 2]["nvml_procs"]},
         "device": {"proc_util_supported": metrics[-1]["extra"]["proc_util_supported"],
@@ -3532,6 +3572,426 @@ def phase_intercept(torch, fa, hardware, hv_build, limiter_lib, name, smi):
     return launches
 
 
+# -- multi-rank tenants: the sharded remote EXECUTE and the mesh under the daemon
+
+SHARD_RANKS = 4                            # the sharded worker's devices (ranks)
+SHARD_LAYERS = 8                           # part a: phase_remote's forward depth
+SHARD_SHAPE = (4, 1024)                    # its tokens: one sequence a rank
+SHARD_CALLS = 12                           # timed sharded EXECUTEs
+SHARD_MLP_ROWS = 4096                      # part b: [rows, dim] replicated input
+SHARD_EPHEMERAL_CALLS = 3                  # part b: calls with per-call shards
+SHARD_HBM_BYTES = 70 << 30                 # a multi-rank tenant's memory budget
+SHARD_START_TIMEOUT_S = 300.0              # the worker's ranks up, the port written
+SHARD_COLLECTIVE_MB = 256                  # part d: one host-staged all-reduce
+
+
+def _mlp_fn(llama):
+    """Llama's MLP with its weights as arguments: w1 / w3 column-sharded
+    and w2 row-sharded over the ranks make one partial-sum reduction."""
+    def mlp(w1, w3, w2, x):
+        return llama._mlp({"w_gate": w1, "w_up": w3, "w_down": w2}, x)
+    return mlp
+
+
+def _submit_multi_rank(url, chip, pod, command):
+    """``default/<pod>``: a soft worker at 100% duty whose command starts a
+    rank group; its env must preload the launch hook.  Returns its env."""
+    spec = {"namespace": "default", "name": pod, "isolation": "soft", "qos": "high",
+            "devices": [{"chip_id": chip, "duty_percent": 100.0,
+                         "hbm_bytes": SHARD_HBM_BYTES}],
+            "command": command}
+    env = _api(url, "/api/v1/workers", "POST", spec)["status"]["env"]
+    if not env.get("LD_PRELOAD", "").startswith(str(REPO)):
+        raise RuntimeError(f"{pod}'s env does not preload the hook: {env.get('LD_PRELOAD')!r}")
+    return env
+
+
+def _segment_vs_hooks(seg, reports):
+    """The segment's launches and charges against the processes' hook
+    reports, which must add up to them exactly."""
+    return {"segment_launches": seg["launches"], "segment_charged_mflop": seg["charged"],
+            "hook_charges": sum(r["charges"] for r in reports),
+            "hook_charged_mflops": sum(r["charged_mflops"] for r in reports),
+            "equal": seg["launches"] == sum(r["charges"] for r in reports)
+            and seg["charged"] == sum(r["charged_mflops"] for r in reports),
+            "unwindowed": sum(r["unwindowed"] for r in reports),
+            "captured": sum(r["captured"] for r in reports)}
+
+
+def _shard_forward(torch, llama, dev, cfg):
+    """Part a: the 8-layer last-position forward, weights resident and
+    replicated, tokens batch-sharded one sequence a rank, against the
+    local call on the same weights."""
+    tree_map = torch.utils._pytree.tree_map
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    params = llama.init_params(cfg, gen, device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab_size, SHARD_SHAPE, generator=gen, device=DEVICE)
+    fn = _last_logits(llama, cfg)
+    want = fn(params, tokens)
+    local_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        fn(params, tokens)
+        torch.cuda.synchronize()
+        local_s.append(time.perf_counter() - s0)
+    full = _last_logits(llama, dataclasses.replace(cfg, attn_impl="full"))(params, tokens)
+    p32 = _float(params)
+    exact = _last_logits(llama, dataclasses.replace(
+        cfg, dtype=torch.float32, attn_impl="full"))(p32, tokens)
+    del p32
+    host = tree_map(lambda t: t.cpu(), params)
+    weights_bytes = sum(t.numel() * t.element_size()
+                        for t in torch.utils._pytree.tree_leaves(host))
+    del params
+    torch.cuda.empty_cache()
+
+    s0 = time.perf_counter()
+    rparams = tree_map(dev.put, host)
+    put_s = time.perf_counter() - s0
+    remote = dev.remote_jit(fn, in_specs=(None, ("b",)), out_specs=("b",))
+    host_tokens = tokens.cpu()
+    s0 = time.perf_counter()
+    layouts = remote.compile_for(rparams, host_tokens)
+    compile_s = time.perf_counter() - s0
+    s0 = time.perf_counter()
+    remote(rparams, host_tokens)          # the first call replicates the weights
+    first_s = time.perf_counter() - s0
+    resident = dev.info()["resident_bytes_per_device"]
+    round_trips = []
+    for _ in range(SHARD_CALLS):
+        s0 = time.perf_counter()
+        got = remote(rparams, host_tokens)
+        round_trips.append(time.perf_counter() - s0)
+    out = got.to(DEVICE)
+    for leaf in torch.utils._pytree.tree_leaves(rparams):
+        leaf.free()
+    bf16 = {"remote_vs_local": _rel(out, want), "remote_vs_f32": _rel(out, exact),
+            "full_vs_f32": _rel(full, exact)}
+    row = {"dim": cfg.dim, "n_layers": cfg.n_layers, "dtype": str(cfg.dtype),
+           "tokens": list(SHARD_SHAPE), "arg_layout_tokens": layouts[3][-1],
+           "out_layout": layouts[4][0], "weights_bytes": weights_bytes, "put_s": put_s,
+           "compile_s": compile_s, "first_call_s": first_s,
+           "resident_bytes_per_device_after_first_call": resident,
+           "execute_ms": _quantiles_ms(round_trips), "local_ms": sorted(local_s)[2] * 1e3,
+           "equal_local": torch.equal(out, want),
+           "argmax_equal_local": torch.equal(out.argmax(-1), want.argmax(-1)),
+           "max_abs_logit_diff_vs_local": (out - want).abs().max().item(),
+           "bf16_rel": bf16, "rule": "remote_vs_f32 <= 1.5 x full_vs_f32 (phase_remote's)"}
+    ok = bf16["remote_vs_f32"] <= 1.5 * bf16["full_vs_f32"] and bool(
+        torch.isfinite(out).all())
+    replicated = all(v >= weights_bytes for v in resident.values())
+    return row, ok and replicated
+
+
+def _shard_mlp(torch, llama, dev, cfg):
+    """Part b: Llama-3-8B's MLP, w1 / w3 column-sharded and w2 row-sharded
+    and resident, the input replicated: one partial-sum reduction."""
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    dim, ffn = cfg.dim, cfg.ffn_dim
+
+    def w(shape):
+        return (torch.randn(shape, generator=gen, device=DEVICE) / shape[0] ** 0.5
+                ).to(cfg.dtype)
+
+    w1, w3, w2 = w((dim, ffn)), w((dim, ffn)), w((ffn, dim))
+    x = torch.randn((SHARD_MLP_ROWS, dim), generator=gen, device=DEVICE).to(cfg.dtype)
+    mlp = _mlp_fn(llama)
+    want = mlp(w1, w3, w2, x)
+    exact = mlp(*(t.float() for t in (w1, w3, w2, x)))
+    hw = [t.cpu() for t in (w1, w3, w2)]
+    hx = x.cpu()
+    del w1, w3, w2
+    torch.cuda.empty_cache()
+    remote = dev.remote_jit(mlp, in_specs=((None, "m"), (None, "m"), ("m", None), None),
+                            out_specs=None)
+    refs = [remote.upload_arg(i, t, *hw, hx) for i, t in enumerate(hw)]
+    resident_s = []
+    for _ in range(3):
+        s0 = time.perf_counter()
+        got = remote(*refs, hx)
+        resident_s.append(time.perf_counter() - s0)
+    got = got.to(DEVICE)
+    # one resident shard a device, fetched from its device, against its slice
+    fetched = []
+    for sid, ent in zip(refs[0].shard_ids, refs[0].layout):
+        _, meta, bufs = dev._rpc("FETCH", {"buf_id": sid, "device_id": ent["device"]}, [])
+        fetched.append(meta.get("device_id") == ent["device"] and torch.equal(
+            bufs[0], hw[0][tuple(slice(lo, hi) for lo, hi in ent["slices"])]))
+    for ref in refs:
+        ref.free()
+    after_free = dev.info()["resident_bytes_per_device"]
+    s0 = time.perf_counter()
+    for _ in range(SHARD_EPHEMERAL_CALLS):
+        per_call = remote(*hw, hx)
+    ephemeral_s = (time.perf_counter() - s0) / SHARD_EPHEMERAL_CALLS
+    after_calls = dev.info()["resident_bytes_per_device"]
+    rel = {"remote_vs_local": _rel(got, want), "remote_vs_f32": _rel(got, exact),
+           "local_vs_f32": _rel(want, exact),
+           "per_call_shards_vs_resident": _rel(per_call.to(DEVICE), got)}
+    row = {"dim": dim, "ffn": ffn, "rows": SHARD_MLP_ROWS, "dtype": str(cfg.dtype),
+           "w1_layout": refs[0].layout, "w2_layout": refs[2].layout, "bf16_rel": rel,
+           "rule": "remote_vs_f32 <= 1.5 x local_vs_f32", "shard_fetch_bit_equal": fetched,
+           "resident_after_free": after_free, "resident_after_ephemeral_calls": after_calls,
+           "resident_call_s": sorted(resident_s)[1], "ephemeral_call_s": ephemeral_s,
+           "shard_bytes": [hw[0].numel() * 2 // SHARD_RANKS, hw[2].numel() * 2 // SHARD_RANKS]}
+    ok = (rel["remote_vs_f32"] <= 1.5 * rel["local_vs_f32"] and all(fetched)
+          and not any(after_free.values()) and not any(after_calls.values())
+          and rel["per_call_shards_vs_resident"] == 0.0)
+    return row, ok
+
+
+def _shard_metering(seg, ranks_info, peak_mflops):
+    """Part c: the tenant's segment against its processes' hook reports,
+    and its charged device-seconds against its ranks' time in calls."""
+    reports = [ranks_info["worker"]["hook"]] + [r["hook"] for r in ranks_info["ranks"]]
+    pids = [ranks_info["worker"]["pid"]] + [r["pid"] for r in ranks_info["ranks"]]
+    in_calls = sum(r["call_s"] for r in ranks_info["ranks"])
+    row = {"pids_registered": seg["pids"], "pids": pids,
+           **_segment_vs_hooks(seg, reports),
+           "charged_device_s": seg["charged"] / peak_mflops,
+           "ranks_s_in_calls": in_calls,
+           "charged_over_time_in_calls": seg["charged"] / peak_mflops / max(in_calls, 1e-9),
+           "per_rank": [{"pid": r["pid"], "calls": r["calls"], "call_s": r["call_s"],
+                         "charges": r["hook"]["charges"],
+                         "charged_s": r["hook"]["charged_mflops"] / peak_mflops,
+                         "flash_launches": r["launch_counts"]["flash_attn_fwd"]}
+                        for r in ranks_info["ranks"]]}
+    ok = (sorted(seg["pids"]) == sorted(pids) and row["equal"]
+          and row["unwindowed"] == 0 and row["captured"] == 0
+          and all(p["flash_launches"] > 0 for p in row["per_rank"]))
+    return row, ok
+
+
+def _mesh_rank_tenant(plan, cfg, seed, batch_seed, collective_mb):
+    """A rank of the mesh tenant: the mesh phase's sharded train step (no
+    checkpoint), with the launch hook's report before and after the
+    steps, and one host-staged all-reduce between two reports."""
+    import os
+
+    torch, dist, ops, collectives = _rank_env()
+    from tensorfusion_tpu_torch.hypervisor import cuda_hook_binding
+    from tensorfusion_tpu_torch.models import llama
+    from tensorfusion_tpu_torch.parallel import make_mesh
+
+    hook = cuda_hook_binding.loaded()
+    if hook is None or not hook.metered():
+        raise RuntimeError("a rank of the mesh tenant runs without the launch hook")
+    dev = plan["device"]
+    mesh = make_mesh(plan["axes"], device=dev)
+    params = _one_rank_at_a_time(torch, dist, lambda: llama.shard_params(llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev), mesh, cfg))
+    step, init_opt = llama.make_train_step(cfg, device=dev, mesh=mesh)
+    opt = init_opt(params)
+    batch = _train_batch(torch, cfg.vocab_size, plan["shape"], batch_seed, dev)
+    torch.cuda.empty_cache()
+    tick = torch.zeros(1, device=dev)
+
+    def charged():
+        tick.add_(1)             # a launch: the hook pays the last window
+        torch.cuda.synchronize()
+        return hook.report()["charged_mflops"]
+
+    collectives.STATS.reset()
+    c0 = charged()
+    losses, step_s, gloo_s, blocked_s = [], [], [], []
+    for _ in range(plan["steps"]):
+        g0 = collectives.STATS.seconds
+        b0 = hook.report()["blocked_us"]
+        t0 = _synced(torch, dist)
+        params, opt, loss = step(params, opt, batch)
+        losses.append(loss.item())
+        step_s.append(_synced(torch, dist) - t0)
+        gloo_s.append(collectives.STATS.seconds - g0)
+        blocked_s.append((hook.report()["blocked_us"] - b0) / 1e6)
+    c1 = charged()
+    del params, opt
+    torch.cuda.empty_cache()
+    x = torch.ones(collective_mb << 19, dtype=torch.bfloat16, device=dev)
+    c2 = charged()
+    t0 = _synced(torch, dist)
+    collectives.all_reduce(x, dist.group.WORLD)
+    coll_s = _synced(torch, dist) - t0
+    c3 = charged()
+    return {"pid": os.getpid(), "losses": losses, "step_s": step_s,
+            "gloo_s": gloo_s, "blocked_s": blocked_s, "comm": collectives.STATS.as_dict(),
+            "launches": ops.launch_counts(), "steps_charged_mflops": c1 - c0,
+            "collective_s": coll_s, "collective_charged_mflops": c3 - c2,
+            "peak_memory_gb": _peak_gb(torch), "hook": hook.report()}
+
+
+def mesh_tenant_main(out: Path) -> int:
+    """The mesh tenant of ``phase_shard`` (part d), spawned by the daemon
+    with the launch hook preloaded: MESH_RANKS ranks on the card over
+    gloo run the mesh phase's fsdp2 x tp2 train step at 8B width; a record of every
+    rank and of this process, then idle until terminated."""
+    import os
+
+    record = _tenant_log(out)
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from tensorfusion_tpu_torch import parallel
+    from tensorfusion_tpu_torch.models import llama
+
+    record(start=os.getpid(), t=time.monotonic())
+    hook = _hooked()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attn_impl="flash",
+                              n_layers=MESH_LAYERS)
+    with parallel.RankGroup(MESH_RANKS, device=DEVICE, backend="gloo",
+                            timeout_s=900) as ranks:
+        res = ranks.run(_mesh_rank_tenant, _mesh_plan(), cfg, 21, 22, SHARD_COLLECTIVE_MB)
+    record(stopped=time.monotonic(), ranks=res,
+           parent={"pid": os.getpid(), "hook": hook.report()})
+    while True:
+        time.sleep(3600)
+
+
+def _mesh_tenant(url, chip, work, peak_mflops):
+    """Part d: the mesh tenant under the daemon, its record and its
+    segment once it has stopped."""
+    from tensorfusion_tpu_torch.hypervisor import ShmView
+
+    out = work / "mesh"
+    env = _submit_multi_rank(url, chip, "mesh", [
+        sys.executable, str(REPO / "chip_smoke.py"), "--mesh-tenant", str(out)])
+    view = ShmView(env["TPF_SHM_PATH"])
+    try:
+        deadline = time.monotonic() + 900
+        while True:
+            lines = _tenant_lines(out)
+            if any("stopped" in l for l in lines):
+                break
+            if time.monotonic() > deadline or sum("start" in l for l in lines) > 1:
+                raise RuntimeError("the mesh tenant did not finish:\n"
+                                   + _tail(out / "tenant.log"))
+            time.sleep(1.0)
+        seg = _read_segment(view)
+    finally:
+        view.close()
+    _api(url, "/api/v1/workers/default/mesh", "DELETE")
+    rec = next(l for l in lines if "stopped" in l)
+    ranks = rec["ranks"]
+    reports = [rec["parent"]["hook"]] + [r["hook"] for r in ranks]
+    step_s = [sum(r["step_s"]) for r in ranks]
+    gloo_s = [sum(r["gloo_s"]) for r in ranks]
+    charged_s = [r["steps_charged_mflops"] / peak_mflops for r in ranks]
+    row = {"axes": MESH_AXES, "n_layers": MESH_LAYERS, "shape": list(MESH_SHAPE),
+           "steps": MESH_STEPS, "losses": ranks[0]["losses"],
+           "step_ms": [max(r["step_s"][i] for r in ranks) * 1e3 for i in range(MESH_STEPS)],
+           # the time each rank slept in the launch hook, refused by the
+           # tenant's bucket, in each step
+           "blocked_ms_per_rank": [[b * 1e3 for b in r["blocked_s"]] for r in ranks],
+           "gloo_share_per_rank": [g / s for g, s in zip(gloo_s, step_s)],
+           "steps_charged_device_s_per_rank": charged_s,
+           "steps_outside_gloo_s_per_rank": [s - g for s, g in zip(step_s, gloo_s)],
+           "charged_over_outside_gloo": sum(charged_s) / max(
+               sum(s - g for s, g in zip(step_s, gloo_s)), 1e-9),
+           "collective": {"mb": SHARD_COLLECTIVE_MB,
+                          "s_per_rank": [r["collective_s"] for r in ranks],
+                          "charged_device_s_per_rank": [
+                              r["collective_charged_mflops"] / peak_mflops for r in ranks]},
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
+           "pids_registered": seg["pids"], **_segment_vs_hooks(seg, reports)}
+    ok = (row["equal"] and sorted(seg["pids"]) == sorted(
+        [rec["parent"]["pid"]] + [r["pid"] for r in ranks])
+        and all(n > 0 for r in ranks for n in r["launches"].values())
+        and all(math.isfinite(l) for l in row["losses"])
+        and all(r["losses"] == row["losses"] for r in ranks))
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    return row, ok, launches
+
+
+def phase_shard(torch, llama, remoting, hardware, hv_build, limiter_lib, name, smi):
+    """Multi-rank tenants under the node agent.  The daemon spawns the
+    sharded remote worker (``python -m tensorfusion_tpu_torch.remoting
+    --ranks 4``) as one soft tenant, ``default/shard``, at 100% duty; a
+    client in this process runs (a) the 8-layer 8B-width flash forward,
+    weights resident and replicated, tokens batch-sharded, (b) Llama-3-8B's
+    MLP with column- and row-sharded resident weights, and reads (c) the
+    tenant's segment against its five processes' hook reports.  Then (d)
+    the daemon spawns the mesh phase's fsdp2 x tp2 train step (4 layers, 8B width)
+    as a second multi-rank tenant for MESH_STEPS steps.  Returns the
+    kernel launches of the tenants' ranks."""
+    from tensorfusion_tpu_torch.hypervisor import ShmView, list_worker_segments
+
+    t_phase = time.perf_counter()
+    work = WORK / "shard"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    peak_mflops = hardware.peak_rates(name)["bf16"] / 1e6
+    provider_lib = hv_build.provider_path()
+    daemon, url = _start_daemon(provider_lib, limiter_lib, work)
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attn_impl="flash",
+                              n_layers=SHARD_LAYERS)
+    checks = {}
+    try:
+        chip = _api(url, "/api/v1/devices")[0]["info"]["chip_id"]
+        port_file = work / "worker.port"
+        env = _submit_multi_rank(url, chip, "shard", [
+            sys.executable, "-m", "tensorfusion_tpu_torch.remoting", "--ranks",
+            str(SHARD_RANKS), "--device", DEVICE, "--host", "127.0.0.1", "--port", "0",
+            "--port-file", str(port_file)])
+        t0 = time.monotonic()
+        while not port_file.exists():
+            if time.monotonic() - t0 > SHARD_START_TIMEOUT_S or daemon.poll() is not None:
+                raise RuntimeError("the sharded worker did not come up:\n"
+                                   + _tail(work / "daemon.log"))
+            time.sleep(0.5)
+        start_s = time.monotonic() - t0
+        view = ShmView(env["TPF_SHM_PATH"])
+        dev = remoting.RemoteDevice(f"tcp://127.0.0.1:{port_file.read_text()}",
+                                    timeout_s=900)
+        try:
+            info = dev.info()
+            fwd, checks["forward"] = _shard_forward(torch, llama, dev, cfg)
+            emit("shard_forward", ranks=SHARD_RANKS, worker_start_s=start_s,
+                 n_devices=info["n_devices"], devices=info["devices"], **fwd,
+                 nvidia_smi=smi)
+            torch.cuda.empty_cache()
+            mlp, checks["mlp"] = _shard_mlp(torch, llama, dev, cfg)
+            emit("shard_mlp", **mlp, nvidia_smi=smi)
+            ranks_info = dev.info(ranks=True)["ranks"]
+            meter, checks["metering"] = _shard_metering(_read_segment(view), ranks_info,
+                                                        peak_mflops)
+            emit("shard_metering", **meter, nvidia_smi=smi)
+        finally:
+            dev.close()
+            view.close()
+        _api(url, "/api/v1/workers/default/shard", "DELETE")
+        torch.cuda.empty_cache()
+        mesh, checks["mesh_tenant"], mesh_launches = _mesh_tenant(url, chip, work,
+                                                                  peak_mflops)
+        emit("shard_mesh_tenant", **mesh, nvidia_smi=smi)
+    finally:
+        _stop(daemon)
+    left = list_worker_segments(str(work / "shm"))
+    checks["segments_removed"] = not left
+    launches = {k: mesh_launches.get(k, 0) for k in mesh_launches}
+    launches["flash_attn_fwd"] += sum(p["flash_launches"] for p in meter["per_rank"])
+    emit("shard_done", checks=checks, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    if not all(checks.values()):
+        raise RuntimeError(f"shard phase checks failed: {checks}")
+    return launches
+
+
+def _memory(torch, phase, t0):
+    """The card memory this process holds as ``phase`` starts: what the
+    earlier phases left allocated, then what is left once reference cycles
+    (an engine and its runner, a worker and its dispatcher) are collected
+    and the cache is emptied; and the smoke's seconds since ``t0``."""
+    held = torch.cuda.memory_allocated() / 1e9
+    reserved = torch.cuda.memory_reserved() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("memory", before=phase, allocated_gb=held, reserved_gb=reserved,
+         allocated_gb_after_gc=torch.cuda.memory_allocated() / 1e9,
+         reserved_gb_after_gc=torch.cuda.memory_reserved() / 1e9,
+         elapsed_s=time.perf_counter() - t0)
+
+
 def phase_bench_train(bench_train, limiter_lib):
     """The metered train-step bench at its own configuration."""
     result = bench_train.run(limiter_lib=str(limiter_lib))
@@ -3553,7 +4013,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     children = {"--tenant": tenant_main, "--tenant-raw": tenant_raw_main,
-                "--probe": probe_main, "--overhead": overhead_main}
+                "--probe": probe_main, "--overhead": overhead_main,
+                "--mesh-tenant": mesh_tenant_main}
     if sys.argv[1:2] and sys.argv[1] in children:
         return children[sys.argv[1]](Path(sys.argv[2]))
     from tensorfusion_tpu_torch import (bench_train, hardware, ops, parallel, remoting,
@@ -3572,48 +4033,55 @@ def main() -> int:
     rows = {"flash_attn_fwd": phase_kernels(torch, fa, rates)}
     rows.update(phase_bwd_kernels(torch, fa, rates))
     torch.cuda.empty_cache()
-    # while this process holds almost nothing: two 8B tenants share the card
+    # while this process holds almost nothing: the tenants share the card
+    _memory(torch, "node", t0)
     node_launches = phase_node(torch, hardware, hv_build, limiter_lib, name, smi)
+    _memory(torch, "intercept", t0)
     intercept_launches = phase_intercept(torch, fa, hardware, hv_build, limiter_lib, name, smi)
+    _memory(torch, "shard", t0)
+    shard_launches = phase_shard(torch, llama, remoting, hardware, hv_build, limiter_lib,
+                                 name, smi)
 
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attn_impl="flash")
+    _memory(torch, "serve", t0)
     params, serve_launches = phase_serve(torch, ops, llama, bench_train,
                                          limiter_lib, cfg)
     ref = phase_serve_check(torch, llama, params, cfg)
+    _memory(torch, "engine", t0)
     engine_launches, engine_outs = phase_engine(torch, ops, llama, serving,
                                                 bench_train, limiter_lib, params,
                                                 cfg, rates, smi)
     phase_engine_check(torch, llama, serving, params, cfg, ref)
-    torch.cuda.empty_cache()
+    _memory(torch, "remote_serve", t0)
     remote_serve_launches = phase_remote_serve(torch, ops, remoting, serving,
                                                bench_train, limiter_lib, params,
                                                cfg, smi, engine_outs)
     del params, ref
-    torch.cuda.empty_cache()
+    _memory(torch, "remote_serve_check", t0)
     phase_remote_serve_check(torch, llama, remoting, serving, cfg)
-    torch.cuda.empty_cache()
 
     cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    _memory(torch, "train", t0)
     params, train_launches = phase_train(torch, ops, llama, bench_train,
                                          limiter_lib, cfg, rates)
     phase_train_check(torch, llama, params, cfg)
     del params
-    torch.cuda.empty_cache()
+    _memory(torch, "mesh", t0)
     mesh_launches = phase_mesh(torch, ops, llama, parallel, cfg, smi)
-    torch.cuda.empty_cache()
+    _memory(torch, "remote", t0)
     remote_launches = phase_remote(torch, ops, llama, remoting, estimate_flops,
                                    bench_train, limiter_lib, cfg, smi)
-    torch.cuda.empty_cache()
+    _memory(torch, "federation", t0)
     params = llama.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(13),
                                device=DEVICE)
     host = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
     fed_launches = phase_federation(torch, ops, llama, remoting, bench_train,
                                     limiter_lib, cfg, params, host, smi)
-    torch.cuda.empty_cache()
+    _memory(torch, "migrate", t0)
     mig_launches = phase_migrate(torch, ops, llama, remoting, serving, bench_train,
                                  limiter_lib, cfg, params, host, smi)
     del params, host
-    torch.cuda.empty_cache()
+    _memory(torch, "bench_train", t0)
     phase_bench_train(bench_train, limiter_lib)
 
     kernels = [{"name": k.name, "route": k.route, "source": k.source,
@@ -3622,7 +4090,8 @@ def main() -> int:
                 + engine_launches[k.name] + remote_launches[k.name]
                 + remote_serve_launches[k.name] + fed_launches[k.name]
                 + mig_launches[k.name] + mesh_launches[k.name]
-                + node_launches[k.name] + intercept_launches[k.name],
+                + node_launches[k.name] + intercept_launches[k.name]
+                + shard_launches[k.name],
                 "launches_by_path": {"serve": serve_launches[k.name],
                                      "train": train_launches[k.name],
                                      "engine": engine_launches[k.name],
@@ -3632,7 +4101,8 @@ def main() -> int:
                                      "migrate": mig_launches[k.name],
                                      "mesh": mesh_launches[k.name],
                                      "node": node_launches[k.name],
-                                     "intercept": intercept_launches[k.name]},
+                                     "intercept": intercept_launches[k.name],
+                                     "shard": shard_launches[k.name]},
                 **{key: rows[k.name][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "plain", "library", "pair_ms")

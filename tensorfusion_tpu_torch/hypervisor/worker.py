@@ -13,7 +13,9 @@ charged on a card exceeds the time the card was busy (tenants that
 time-slice it each pay for the slices they waited through), each charged
 worker's refill is raised by its part of the excess; where the provider
 cannot tell a process's duty, the ERL reads each worker's from its
-charges.
+charges.  A frozen worker stays out of the ERL's step: the charges the
+limiter refuses it while frozen are not hunger, and its refill and
+capacity stay as they were until it resumes.
 """
 
 from __future__ import annotations
@@ -88,6 +90,10 @@ class WorkerController:
         self._lock = threading.RLock()
         # guarded by: _lock
         self._workers: Dict[str, TrackedWorker] = {}
+        # held by a whole tick and by a freeze or resume, so that a tick
+        # which read a worker as running cannot push its quota after the
+        # worker was frozen
+        self._tick_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._last_tick = self.clock.monotonic()
@@ -251,6 +257,10 @@ class WorkerController:
     # -- hot loop ---------------------------------------------------------
 
     def tick(self) -> None:
+        with self._tick_lock:
+            self._tick()
+
+    def _tick(self) -> None:
         now = self.clock.monotonic()
         dt = max(now - self._last_tick, 1e-3)
         self._last_tick = now
@@ -287,6 +297,7 @@ class WorkerController:
                 except (ValueError, OSError):
                     log.warning("unreadable shm for %s", w.spec.key)
             pids = list(shm_state.pids) if shm_state else w.status.pids
+            frozen = w.status.frozen or bool(shm_state and shm_state.frozen)
 
             total_duty = 0.0
             total_hbm = 0
@@ -316,15 +327,16 @@ class WorkerController:
                     charged.setdefault(b.chip_id, {})[
                         (w.spec.key, b.device_index)] = mflop / peak / dt
                     peaks[b.chip_id] = peak
-                    observations.append(Observation(
-                        worker_key=w.spec.key,
-                        device_index=b.device_index,
-                        chip_id=b.chip_id,
-                        quota_duty_bp=int(b.duty_percent * 100),
-                        peak_mflops_per_s=peak,
-                        measured_duty_pct=duty,
-                        blocked_delta=blocked,
-                        qos=w.spec.qos))
+                    if not frozen:
+                        observations.append(Observation(
+                            worker_key=w.spec.key,
+                            device_index=b.device_index,
+                            chip_id=b.chip_id,
+                            quota_duty_bp=int(b.duty_percent * 100),
+                            peak_mflops_per_s=peak,
+                            measured_duty_pct=duty,
+                            blocked_delta=blocked,
+                            qos=w.spec.qos))
                     try:
                         self.limiter.set_pod_hbm_used(ns, pod,
                                                       b.device_index, hbm)
@@ -440,21 +452,25 @@ class WorkerController:
         if w is None:
             return
         ns, pod = worker_key.split("/", 1)
-        try:
-            self.limiter.set_frozen(ns, pod, False, auto_freeze=True)
-            self.limiter.set_frozen(ns, pod, False, auto_freeze=False)
-        except LimiterError:
-            pass
-        w.auto_frozen = False
-        w.status.frozen = False
-        w.last_active_ts = self.clock.now()
+        with self._tick_lock:
+            try:
+                self.limiter.set_frozen(ns, pod, False, auto_freeze=True)
+                self.limiter.set_frozen(ns, pod, False, auto_freeze=False)
+            except LimiterError:
+                pass
+            w.auto_frozen = False
+            w.status.frozen = False
+            w.last_active_ts = self.clock.now()
 
     def freeze_worker(self, worker_key: str) -> None:
+        """Freeze between two ticks: once this returns, no tick moves the
+        worker's bucket until it resumes."""
         ns, pod = worker_key.split("/", 1)
-        self.limiter.set_frozen(ns, pod, True, auto_freeze=False)
-        w = self.get(worker_key)
-        if w is not None:
-            w.status.frozen = True
+        with self._tick_lock:
+            self.limiter.set_frozen(ns, pod, True, auto_freeze=False)
+            w = self.get(worker_key)
+            if w is not None:
+                w.status.frozen = True
 
     # -- orphan cleanup (controller.go:425-484 analog) --------------------
 

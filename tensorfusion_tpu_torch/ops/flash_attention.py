@@ -33,6 +33,8 @@ import logging
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
@@ -336,6 +338,21 @@ _flash_fwd_op.register_autograd(_flash_fwd_backward,
                                 setup_context=_flash_fwd_setup_context)
 
 
+@register_sharding(torch.ops.tpf_torch.flash_attn_fwd.default)
+def _flash_fwd_sharding(q, k, v, scale, causal):
+    """The forward on ``DTensor``s over a 1-D mesh: q, k and v sharded
+    alike on their folded batch-and-head dimension run the kernel on each
+    rank's local rows, and out and lse come back sharded alike.  Every
+    other placement raises: the rows of one (batch, head) pair never
+    leave their rank, so nothing here may gather them."""
+    places = [tuple(x.placements) for x in (q, k, v)]
+    if not places[0] == places[1] == places[2] == (Shard(0),):
+        raise ValueError(f"flash_attn_fwd on DTensors needs q, k and v sharded "
+                         f"alike on dim 0 (batch x heads) of a 1-D mesh, got "
+                         f"{places}")
+    return [([Shard(0), Shard(0)], [Shard(0), Shard(0), Shard(0), None, None])]
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float, causal: bool
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -381,6 +398,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  block=BLOCK_Q)[:, 0]
 
     four_d = q.dim() == 4
+    if four_d and isinstance(q, DTensor) and tuple(q.placements) == (Shard(1),):
+        # head-sharded: heads first, so the folded rows stay on their rank
+        out = flash_attention(*(x.transpose(0, 1) for x in (q, k, v)),
+                              causal=causal, scale=scale, backend=backend)
+        return out.transpose(0, 1)
     if four_d:
         b, h, t, d = q.shape
         q, k, v = (x.reshape(b * h, t, d) for x in (q, k, v))

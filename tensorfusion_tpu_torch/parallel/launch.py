@@ -20,8 +20,16 @@ order.
 A function run on the ranks must be importable by name (a module-level
 function of a module that imports only torch and the port), and its
 arguments and result must pickle; return CPU tensors, numpy arrays or
-plain values.  A rank that raises fails the whole call: the other ranks
-are stopped and the call raises with the rank's traceback.
+plain values.  CPU tensors cross through shared memory
+(``torch.multiprocessing``), never through a collective.  A rank that
+raises fails the whole call: the other ranks are stopped and the call
+raises with the rank's traceback.
+
+A group kept open serves as the devices of one process: ``run`` calls a
+function on every rank, ``run_each`` with each rank's own arguments,
+``call`` on one rank, one call at a time (a lock serialises callers),
+and :func:`rank_store` is a rank's dict that outlives its tasks (the
+remote worker keeps its shards and loaded programs there).
 """
 
 from __future__ import annotations
@@ -31,9 +39,10 @@ import os
 import queue
 import shutil
 import tempfile
+import threading
 import time
 import traceback
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -45,6 +54,17 @@ BACKENDS = ("gloo", "nccl")
 GROUP_TIMEOUT_S = 600.0
 #: seconds the other ranks get to report after one rank has failed
 FAIL_GRACE_S = 5.0
+
+#: this rank's state between tasks (set in each spawned rank)
+_STORE: Optional[Dict[str, Any]] = None
+
+
+def rank_store() -> Dict[str, Any]:
+    """The calling rank's dict that outlives its tasks; raises outside a
+    rank of a :class:`RankGroup`."""
+    if _STORE is None:
+        raise RuntimeError("rank_store() is for functions run on a rank")
+    return _STORE
 
 
 def check_backend(world_size: int, device: str, backend: str) -> torch.device:
@@ -68,6 +88,8 @@ def check_backend(world_size: int, device: str, backend: str) -> torch.device:
 
 def _rank_main(rank: int, world_size: int, device: str, backend: str,
                init_method: str, tasks, results) -> None:
+    global _STORE
+    _STORE = {}
     torch.set_num_threads(1)
     try:
         if device == "cuda":
@@ -79,9 +101,15 @@ def _rank_main(rank: int, world_size: int, device: str, backend: str,
         results.put((rank, "error", traceback.format_exc()))
         return
     results.put((rank, "ready", None))
+    parent = os.getppid()
     try:
         while True:
-            task = tasks.get()
+            try:
+                task = tasks.get(timeout=1.0)
+            except queue.Empty:
+                if os.getppid() != parent:      # orphaned: the group is gone
+                    break
+                continue
             if task is None:
                 break
             fn, args = task
@@ -102,6 +130,7 @@ class RankGroup:
         dev = check_backend(world_size, device, backend)
         self.world_size, self.device, self.backend = world_size, dev.type, backend
         self.timeout_s = timeout_s
+        self._lock = threading.Lock()
         self._dir = tempfile.mkdtemp(prefix="tpf-ranks-")
         ctx = torch.multiprocessing.get_context("spawn")
         self._tasks = [ctx.Queue() for _ in range(world_size)]
@@ -114,16 +143,23 @@ class RankGroup:
         try:
             for p in self._procs:
                 p.start()
-            self._collect()
+            self._collect(range(world_size))
         except BaseException:
             self.close()
             raise
 
-    def _collect(self) -> List[Any]:
-        """One message from every rank (ready, or a result), in rank order;
-        raises when a rank fails, dies or overruns the timeout."""
+    @property
+    def pids(self) -> List[int]:
+        """The ranks' process ids, in rank order."""
+        return [p.pid for p in self._procs]
+
+    def _collect(self, ranks) -> List[Any]:
+        """One message from each of ``ranks`` (ready, or a result), by rank
+        (None for the others); raises when a rank fails, dies or overruns
+        the timeout."""
+        procs = self._procs
         out: List[Any] = [None] * self.world_size
-        pending = set(range(self.world_size))
+        pending = set(ranks)
         deadline = time.monotonic() + self.timeout_s
         errors = {}
         while pending:
@@ -134,7 +170,7 @@ class RankGroup:
                 # short waits, so a rank that died is seen at once
                 rank, kind, value = self._results.get(timeout=min(max(left, 0.01), 1.0))
             except queue.Empty:
-                dead = [r for r in pending if not self._procs[r].is_alive()]
+                dead = [r for r in pending if not procs[r].is_alive()]
                 if errors or dead or time.monotonic() >= deadline:
                     break
                 continue
@@ -152,11 +188,28 @@ class RankGroup:
 
     def run(self, fn: Callable, *args) -> List[Any]:
         """``fn(*args)`` on every rank; the results in rank order."""
-        if not self._procs:
-            raise RuntimeError("the rank group is closed")
-        for q in self._tasks:
-            q.put((fn, args))
-        return self._collect()
+        return self.run_each(fn, [args] * self.world_size)
+
+    def run_each(self, fn: Callable, args: Sequence[tuple]) -> List[Any]:
+        """``fn(*args[r])`` on each rank r; the results in rank order."""
+        if len(args) != self.world_size:
+            raise ValueError(f"{len(args)} argument tuples for {self.world_size} ranks")
+        with self._lock:
+            if not self._procs:
+                raise RuntimeError("the rank group is closed")
+            for q, a in zip(self._tasks, args):
+                q.put((fn, tuple(a)))
+            return self._collect(range(self.world_size))
+
+    def call(self, rank: int, fn: Callable, *args) -> Any:
+        """``fn(*args)`` on rank ``rank`` alone; its result."""
+        if not 0 <= rank < self.world_size:
+            raise ValueError(f"no rank {rank} in a group of {self.world_size}")
+        with self._lock:
+            if not self._procs:
+                raise RuntimeError("the rank group is closed")
+            self._tasks[rank].put((fn, args))
+            return self._collect([rank])[rank]
 
     def close(self, wait: bool = True) -> None:
         """Stop the ranks: let them leave their group and exit, or (after a

@@ -93,6 +93,33 @@ def _cases(dev: torch.device, dtype: torch.dtype) -> Dict[str, Callable[[], bool
         return bool((d.full_tensor() == torch.arange(n, device=dev)
                      .repeat_interleave(4)).all())
 
+    def _mesh():
+        from torch.distributed.device_mesh import init_device_mesh
+
+        return init_device_mesh(dev.type, (n,), mesh_dim_names=("x",))
+
+    def dtensor_shard_to_replicate():
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        d = DTensor.from_local(full(r), _mesh(), [Shard(0)], run_check=False)
+        got = d.redistribute(placements=[Replicate()]).to_local()
+        return bool((got == torch.arange(n, device=dev).repeat_interleave(4)).all())
+
+    def dtensor_partial_to_replicate():
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        d = DTensor.from_local(full(r + 1), _mesh(), [Partial()], run_check=False)
+        got = d.redistribute(placements=[Replicate()]).to_local()
+        return bool((got == n * (n + 1) / 2).all())
+
+    def dtensor_replicate_to_shard():
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        whole = torch.arange(4 * n, device=dev, dtype=dtype)
+        d = DTensor.from_local(whole, _mesh(), [Replicate()], run_check=False)
+        got = d.redistribute(placements=[Shard(0)]).to_local()
+        return bool((got == whole[4 * r:4 * r + 4]).all())
+
     def checkpoint_reshard():
         import torch.distributed.checkpoint as dcp
         from torch.distributed.device_mesh import init_device_mesh
@@ -112,13 +139,15 @@ def _cases(dev: torch.device, dtype: torch.dtype) -> Dict[str, Callable[[], bool
     return {f.__name__: f for f in (
         all_reduce_sum, all_reduce_max, all_gather_into_tensor, all_gather,
         reduce_scatter_tensor, all_to_all_single, broadcast, send_recv,
-        batch_isend_irecv, dtensor_full_tensor, checkpoint_reshard)}
+        batch_isend_irecv, dtensor_full_tensor, dtensor_shard_to_replicate,
+        dtensor_partial_to_replicate, dtensor_replicate_to_shard, checkpoint_reshard)}
 
 
 CASES = ("all_reduce_sum", "all_reduce_max", "all_gather_into_tensor",
          "all_gather", "reduce_scatter_tensor", "all_to_all_single",
          "broadcast", "send_recv", "batch_isend_irecv", "dtensor_full_tensor",
-         "checkpoint_reshard")
+         "dtensor_shard_to_replicate", "dtensor_partial_to_replicate",
+         "dtensor_replicate_to_shard", "checkpoint_reshard")
 
 
 def probe_case(device: str, dtype: str, name: str) -> str:

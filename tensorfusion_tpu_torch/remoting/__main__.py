@@ -1,14 +1,23 @@
 """Standalone remote worker of the port: serves one device (the card by
-default) over TCP for ``RemoteDevice`` clients.
+default), or the ranks of a rank group as a mesh, over TCP for
+``RemoteDevice`` clients.
 
     python -m tensorfusion_tpu_torch.remoting --port 7707 [--token SECRET] \
-        [--device cuda] [--max-resident-gb 40] [--state-root DIR]
+        [--device cuda] [--max-resident-gb 40] [--state-root DIR] \
+        [--ranks N] [--port-file FILE]
+
+``--ranks N`` (N > 1) spawns N ranks (rank r on ``cuda:(r % count)``, or
+the CPU with ``--device cpu``) that serve sharded programs as devices
+0..N-1.  ``--port-file`` gets the bound port once the worker serves
+(``--port 0`` picks a free one).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+import signal
 import threading
 
 
@@ -27,6 +36,11 @@ def main() -> None:
     parser.add_argument("--state-root", default=None,
                         help="the only directory SNAPSHOT / RESTORE may "
                              "use (unset refuses both)")
+    parser.add_argument("--ranks", type=int, default=1,
+                        help="devices as ranks of a rank group (default 1: "
+                             "this process serves one device)")
+    parser.add_argument("--port-file", default=None,
+                        help="write the bound port here once serving")
     parser.add_argument("--insecure", action="store_true",
                         help="serve without a token on a non-loopback "
                              "bind (the worker runs caller-supplied "
@@ -42,14 +56,23 @@ def main() -> None:
         host=args.host, port=args.port, token=args.token,
         max_resident_bytes=int(args.max_resident_gb * (1 << 30)),
         insecure=args.insecure or None, device=args.device,
-        state_root=args.state_root)
+        state_root=args.state_root, ranks=args.ranks)
     worker.start()
-    print(f"tpf remote worker ready on {worker.url} ({worker.device})",
-          flush=True)
+    if args.port_file:
+        with open(args.port_file + ".tmp", "w") as f:
+            f.write(str(worker.port))
+        os.replace(args.port_file + ".tmp", args.port_file)
+    print(f"tpf remote worker ready on {worker.url} ({worker.device}, "
+          f"{args.ranks} rank(s))", flush=True)
+    # SIGTERM (the node agent's delete) stops the worker, and with it the
+    # ranks it spawned
+    done = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: done.set())
     try:
-        threading.Event().wait()
+        done.wait()
     except KeyboardInterrupt:
-        worker.stop()
+        pass
+    worker.stop()
 
 
 if __name__ == "__main__":

@@ -43,9 +43,19 @@ is sent when the connection negotiated less (the client half of the
 double gate; the worker refuses the kind as well).  Large accumulators
 go ahead as quiet ephemeral PUTs sent directly on the connection.
 
-Left out until the multi-device slice: ``ShardedRemoteBuffer``, the
-sharded layouts and the reference's background upload stream; until the
-control-plane part: ``from_connection``.
+Sharded programs (protocol v3), against a worker over several ranks:
+``remote_jit(fn, in_specs=, out_specs=)`` exports ``fn`` with its specs
+and the worker's device count (``remoting/program.py``); COMPILE
+answers with a wire layout per argument and result.  Host leaves of a
+sharded argument are split by that layout: a shard of
+``SHARD_PUT_MIN_BYTES`` or more goes ahead as a quiet ephemeral PUT to
+its ``device_id``, a smaller one rides inline in the EXECUTE.
+``upload_arg`` parks a sharded argument as resident shards
+(:class:`ShardedRemoteBuffer`, fetched back whole or per device) and
+``step_resident`` returns one for each sharded result.  Left out: the
+reference's background upload stream (``_UploadStream``: its shard
+PUTs go on the connection directly, as KV_SHIP's do), and until the
+control-plane part ``from_connection``.
 """
 
 from __future__ import annotations
@@ -143,6 +153,42 @@ class RemoteBuffer:
         self.device._rpc("FREE", {"buf_ids": [self.buf_id]}, [])
 
 
+class ShardedRemoteBuffer:
+    """Handle to a tensor resident on the worker as one shard a device
+    (``remote.upload_arg`` of a sharded argument, or a sharded result of
+    ``step_resident``), usable as that argument of the sharded function
+    whose layout it has.  ``dtype`` is the wire name."""
+
+    def __init__(self, device: "RemoteDevice", shard_ids: List[str],
+                 layout: List[dict], shape, dtype):
+        self.device = device
+        self.shard_ids = list(shard_ids)
+        self.layout = layout
+        self.shape = tuple(shape)
+        self.dtype = str(dtype)
+
+    def fetch(self) -> torch.Tensor:
+        """The whole tensor, reassembled from its shards."""
+        out = torch.empty(self.shape, dtype=protocol.TORCH_DTYPES[self.dtype])
+        for sid, ent in zip(self.shard_ids, self.layout):
+            _, _, bufs = self.device._rpc(
+                "FETCH", {"buf_id": sid, "device_id": ent["device"]}, [])
+            out[_slices(ent)] = bufs[0]
+        return out
+
+    def free(self) -> None:
+        self.device._rpc("FREE", {"buf_ids": list(self.shard_ids)}, [])
+
+
+def _slices(ent: dict) -> tuple:
+    return tuple(slice(lo, hi) for lo, hi in ent["slices"])
+
+
+def _as_tensor(leaf) -> torch.Tensor:
+    return leaf if isinstance(leaf, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(leaf))
+
+
 def _nbytes(arr) -> int:
     if isinstance(arr, torch.Tensor):
         return arr.numel() * arr.element_size()
@@ -150,7 +196,7 @@ def _nbytes(arr) -> int:
 
 
 def _wire_dtype(leaf) -> str:
-    if isinstance(leaf, RemoteBuffer):
+    if isinstance(leaf, (RemoteBuffer, ShardedRemoteBuffer)):
         return leaf.dtype
     if isinstance(leaf, torch.Tensor):
         return protocol.WIRE_NAMES[leaf.dtype]
@@ -228,6 +274,9 @@ class RemoteDevice:
         self._streams: Dict[int, Tuple[Any, set]] = {}
         self._seq = 0
         self._mint = itertools.count(1)   # client-minted buffer ids
+        #: the worker's device count, read from INFO at the first sharded
+        #: export
+        self._n_devices: Optional[int] = None
         #: frame versions this client build decodes
         self._accept = tuple(v for v in protocol.SUPPORTED_VERSIONS
                              if v <= self.protocol_version)
@@ -319,10 +368,15 @@ class RemoteDevice:
     def close(self) -> None:
         with self._send_lock:
             if self._sock is not None:
-                try:
-                    self._sock.close()
-                except OSError:
-                    pass
+                # shutdown first: the reader thread blocked in recv keeps a
+                # bare close() from ending the connection, so the worker's
+                # handler (and all it holds) would stay alive
+                for end in (lambda: self._sock.shutdown(socket.SHUT_RDWR),
+                            self._sock.close):
+                    try:
+                        end()
+                    except OSError:
+                        pass
                 self._sock = None
             # the reader's reconnect guard makes it exit without touching
             # _pending once the socket is swapped out, so close() fails
@@ -434,8 +488,11 @@ class RemoteDevice:
                 self.close()
         raise RemoteExecutionError("unreachable")
 
-    def info(self) -> Dict[str, Any]:
-        _, meta, _ = self._rpc("INFO", {}, [])
+    def info(self, ranks: bool = False) -> Dict[str, Any]:
+        """The worker's INFO; ``ranks=True`` adds, on a worker over
+        ranks, each rank's pid, launches, time in calls and hook report
+        (a call on every rank, so it waits behind their work)."""
+        _, meta, _ = self._rpc("INFO", {"ranks": True} if ranks else {}, [])
         return meta
 
     def put(self, array, device_id: int = 0) -> RemoteBuffer:
@@ -809,7 +866,14 @@ class RemoteDevice:
 
     # ------------------------------------------------------------------
 
-    def remote_jit(self, fn: Callable, microbatch: bool = False) -> Callable:
+    def n_devices(self) -> int:
+        """The worker's device count (INFO ``n_devices``)."""
+        if self._n_devices is None:
+            self._n_devices = int(self.info().get("n_devices", 1))
+        return self._n_devices
+
+    def remote_jit(self, fn: Callable, microbatch: bool = False,
+                   in_specs=None, out_specs=None) -> Callable:
         """Wrap ``fn`` so calls execute on the remote worker.  ``fn``
         takes and returns tensor pytrees; it is exported here, once per
         argument signature.  The wrapper also exposes ``.submit(*args)
@@ -824,19 +888,29 @@ class RemoteDevice:
         ``microbatch=True`` declares the executable fusable: the worker
         may run compatible concurrent requests (same executable, from
         this or other connections) in one dispatch, each with its own
-        inputs and outputs."""
-        return self._remote_jit(fn, microbatch, {})
+        inputs and outputs.
+
+        ``in_specs`` / ``out_specs`` make ``fn`` a sharded program over
+        every device of the worker (a worker over ranks): specs in the
+        reference's ``PartitionSpec`` form over one flat mesh axis, e.g.
+        ``("b",)`` (first dim split), ``(None, "m")``, or None
+        (replicated); ``in_specs`` one for every argument leaf or one per
+        argument, ``out_specs`` one for every result leaf or one per
+        result leaf.  With both None the call is a plain one."""
+        sharding = None if in_specs is None and out_specs is None \
+            else (in_specs, out_specs)
+        return self._remote_jit(fn, microbatch, {}, sharding)
 
     def _remote_jit(self, fn: Callable, microbatch: bool,
-                    exports: Dict[Any, tuple]) -> Callable:
+                    exports: Dict[Any, tuple], sharding=None) -> Callable:
         """:meth:`remote_jit` with ``exports`` (signature -> exported
         program) shared by every wrapper that ``.on`` derives."""
-        #: sig -> (exe_id, out_tree, out_sigs)
-        exe_ids: Dict[Any, Tuple[str, Any, list]] = {}
+        #: sig -> (exe_id, out_tree, out_sigs, arg_layouts, out_layouts)
+        exe_ids: Dict[Any, tuple] = {}
         device = self
 
         def leaf_sig(l):
-            if isinstance(l, (RemoteBuffer, torch.Tensor)):
+            if isinstance(l, (RemoteBuffer, ShardedRemoteBuffer, torch.Tensor)):
                 return (tuple(l.shape), _wire_dtype(l))
             arr = np.asarray(l)
             return (arr.shape, arr.dtype.name)
@@ -844,8 +918,11 @@ class RemoteDevice:
         def export(sig, treedef) -> tuple:
             specs = [(shape, protocol.TORCH_DTYPES[dt])
                      for shape, dt in sig[0]]
+            shard = {} if sharding is None else {
+                "in_specs": sharding[0], "out_specs": sharding[1],
+                "nr_devices": device.n_devices()}
             blob, out_tree, out_sigs = program.export_program(
-                fn, specs, treedef)
+                fn, specs, treedef, **shard)
             try:
                 metas = [torch.empty(shape, dtype=dt, device="meta")
                          for shape, dt in specs]
@@ -870,29 +947,76 @@ class RemoteDevice:
                 cmeta: Dict[str, Any] = {"mflops_hint": mflops}
                 if microbatch:
                     cmeta["microbatch"] = True
+                if sharding is not None:
+                    device._ensure_version(protocol.SHARD_MIN_VERSION,
+                                           "a sharded program")
                 _, meta, _ = device._rpc(
                     "COMPILE", cmeta, [np.frombuffer(blob, dtype=np.uint8)])
+                if sharding is not None and meta.get("arg_layouts") is None:
+                    raise RemoteExecutionError(
+                        f"function is sharded but the worker returned no "
+                        f"shard layouts (protocol v{device._wire_version}; "
+                        f"sharded execution needs a v3 worker over ranks)")
                 entry = (meta["exe_id"], out_tree,
                          [(shape, protocol.WIRE_NAMES[dt])
-                          for shape, dt in out_sigs])
+                          for shape, dt in out_sigs],
+                         meta.get("arg_layouts"), meta.get("out_layouts"))
                 exe_ids[sig] = entry
             return entry, leaves
 
         def send_execute(entry, leaves, extra_meta=None,
                          want_reply=True, stats=None) -> Optional[Future]:
             """Fire the EXECUTE; returns the raw transport future (None
-            for fire-and-forget)."""
+            for fire-and-forget).  A sharded call splits host leaves by
+            the COMPILE layout: big shards go ahead as quiet ephemeral
+            PUTs, small ones inline."""
+            layouts = entry[3]
             arg_refs: list = []
             buffers: list = []
-            for leaf in leaves:
-                if isinstance(leaf, RemoteBuffer):
-                    arg_refs.append(leaf.buf_id)
-                else:
+            if layouts is None:
+                for leaf in leaves:
+                    if isinstance(leaf, RemoteBuffer):
+                        arg_refs.append(leaf.buf_id)
+                    else:
+                        arg_refs.append(None)
+                        buffers.append(leaf)
+                return device._submit(
+                    "EXECUTE", dict(extra_meta or {}, exe_id=entry[0],
+                                    arg_refs=arg_refs),
+                    buffers, want_reply=want_reply, stats=stats)
+            arg_shards: list = []
+            for leaf, lay in zip(leaves, layouts):
+                if isinstance(leaf, ShardedRemoteBuffer):
                     arg_refs.append(None)
+                    arg_shards.append(list(leaf.shard_ids))
+                elif isinstance(leaf, RemoteBuffer):
+                    arg_refs.append(leaf.buf_id)
+                    arg_shards.append(None)
+                elif lay is None:
+                    arg_refs.append(None)
+                    arg_shards.append(None)
                     buffers.append(leaf)
+                else:
+                    host = _as_tensor(leaf)
+                    ctr = next(device._mint)
+                    ids: list = []
+                    for k, ent in enumerate(lay):
+                        view = host[_slices(ent)].contiguous()
+                        if _nbytes(view) >= SHARD_PUT_MIN_BYTES:
+                            sid = f"c-a{ctr}-{k}"
+                            device._submit("PUT", {
+                                "buf_id": sid, "device_id": ent["device"],
+                                "ephemeral": True, "quiet": True},
+                                [view], want_reply=False, stats=stats)
+                            ids.append(sid)
+                        else:
+                            ids.append(None)     # inline in the EXECUTE
+                            buffers.append(view)
+                    arg_refs.append(None)
+                    arg_shards.append(ids)
             return device._submit(
                 "EXECUTE", dict(extra_meta or {}, exe_id=entry[0],
-                                arg_refs=arg_refs),
+                                arg_refs=arg_refs, arg_shards=arg_shards),
                 buffers, want_reply=want_reply, stats=stats)
 
         def _deadline_meta(deadline_ms):
@@ -1047,7 +1171,7 @@ class RemoteDevice:
             returns ``(handles, Future)`` of the completion ack."""
             device._ensure_v3("step_resident (client-minted result ids)")
             entry, leaves = prepare(args)
-            _, out_tree, out_sigs = entry
+            _, out_tree, out_sigs, _, out_layouts = entry
             ctr = next(device._mint)
             ids = [f"c-r{ctr}-{j}" for j in range(len(out_sigs))]
             want_ack = wait or acked
@@ -1057,36 +1181,58 @@ class RemoteDevice:
                             **({} if want_ack else {"quiet": True})},
                 want_reply=want_ack)
             if free:
-                dead = [h.buf_id for h in (free if isinstance(
-                    free, (tuple, list)) else (free,))]
+                dead = []
+                for h in (free if isinstance(free, (tuple, list)) else (free,)):
+                    dead.extend(getattr(h, "shard_ids", None) or [h.buf_id])
                 device._submit("FREE", {"buf_ids": dead, "quiet": True},
                                [], want_reply=False)
             if wait:
                 device._result(fut)
-            handles = [RemoteBuffer(device, i, shape, dtype)
-                       for i, (shape, dtype) in zip(ids, out_sigs)]
+            handles = [
+                RemoteBuffer(device, i, shape, dtype) if lay is None else
+                ShardedRemoteBuffer(device, [f"{i}#{ent['device']}" for ent in lay],
+                                    lay, shape, dtype)
+                for i, (shape, dtype), lay in zip(
+                    ids, out_sigs, out_layouts or [None] * len(ids))]
             out = pytree.tree_unflatten(handles, out_tree)
             if acked and not wait:
                 return out, fut
             return out
 
-        def upload_arg(index: int, array, *example_args) -> RemoteBuffer:
-            """Park argument ``index`` resident ahead of calls (on one
-            device: a plain resident buffer).  Needs the call signature:
-            example args, or an earlier call."""
+        def upload_arg(index: int, array, *example_args):
+            """Park flat argument ``index`` resident ahead of calls: split
+            by the layout of a sharded argument, each shard PUT to its
+            device (a :class:`ShardedRemoteBuffer`); otherwise a plain
+            resident buffer.  Needs the call signature: example args, or
+            an earlier call (the latest one's)."""
             if example_args:
-                prepare(example_args)
-            elif not exe_ids:
+                entry = prepare(example_args)[0]
+            elif exe_ids:
+                entry = next(reversed(exe_ids.values()))
+            else:
                 raise RemoteExecutionError(
                     "upload_arg needs the call signature: pass example "
                     "args (upload_arg(i, array, *example_args)) or call "
                     "the function once first")
-            return device.put(array)
+            lay = entry[3][index] if entry[3] is not None else None
+            if lay is None:
+                return device.put(array)
+            host = _as_tensor(array)
+            ctr = next(device._mint)
+            ids = [f"c-w{ctr}-{k}" for k in range(len(lay))]
+            futs = [device._submit("PUT", {"buf_id": sid, "device_id": ent["device"]},
+                                   [host[_slices(ent)].contiguous()])
+                    for sid, ent in zip(ids, lay)]
+            for f in futs:      # upload errors surface before first use
+                device._result(f)
+            return ShardedRemoteBuffer(device, ids, lay, host.shape,
+                                       _wire_dtype(host))
 
         remote._tpf_remote = True  # noqa: SLF001
         remote.submit = submit
         remote.compile_for = compile_for
         remote.upload_arg = upload_arg
         remote.step_resident = step_resident
-        remote.on = lambda other: other._remote_jit(fn, microbatch, exports)
+        remote.on = lambda other: other._remote_jit(fn, microbatch, exports,
+                                                    sharding)
         return remote

@@ -31,6 +31,19 @@ few ``operator`` / ``math`` functions.  Anything else raises
 moved to the worker's device (``move_to_device_pass``: an export on the
 CPU bakes ``device="cpu"`` into the tensors the graph makes, such as
 RoPE's positions) and returned as a callable module.
+
+A sharded program (protocol v3): ``torch.export`` keeps no in/out
+shardings the way ``jax.export`` does, so :func:`export_program` writes
+them beside the program, as the archive's one extra member
+``extra/shardings.json``: ``nr_devices``, a spec per flat input and per
+flat output in the reference's ``PartitionSpec`` form over one flat
+mesh axis (``None`` replicated; else a list of ``None`` or the axis
+name, one entry per leading dimension, at most one named), and the
+shapes they apply to.  The member is part of the blob, so the
+executable id covers it.  :func:`check_archive` refuses specs that do
+not fit their shapes (a named dimension must split evenly over
+``nr_devices``) and :func:`load_program` shapes that are not the
+program's own.
 """
 
 from __future__ import annotations
@@ -39,7 +52,7 @@ import io
 import json
 import re
 import zipfile
-from typing import Callable, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -79,6 +92,12 @@ _MODEL = re.compile(rf"models/{_NAME}\.json")
 _SAMPLE_INPUTS = re.compile(rf"data/sample_inputs/{_NAME}\.pt")
 _CONFIG = re.compile(rf"data/(weights|constants)/{_NAME}_config\.json")
 _PAYLOAD = re.compile(rf"data/(weights|constants)/({_NAME})")
+#: the sharded program's specs (the one extra member an archive may hold)
+SHARDINGS = "shardings.json"
+#: ceiling on ``nr_devices``: it arrives off the wire
+MAX_DEVICES = 64
+
+Spec = Optional[Tuple[Optional[str], ...]]
 
 
 class _Flat(torch.nn.Module):
@@ -95,11 +114,92 @@ class _Flat(torch.nn.Module):
         return tuple(pytree.tree_leaves(out))
 
 
+def is_spec(x) -> bool:
+    """A ``PartitionSpec`` of the flat mesh: None, or a tuple (or list) of
+    None and axis names."""
+    return x is None or (isinstance(x, (tuple, list))
+                         and all(e is None or isinstance(e, str) for e in x))
+
+
+def flat_specs(specs, treedef) -> List[Spec]:
+    """One spec per leaf of a pytree of structure ``treedef``: ``specs``
+    is one spec for every leaf, or one per top-level child (each applying
+    to every leaf of that child)."""
+    if is_spec(specs):
+        return [None if specs is None else tuple(specs)] * treedef.num_leaves
+    # each top-level child's leaves, by their flat positions
+    children = pytree.tree_unflatten(list(range(treedef.num_leaves)), treedef)
+    if len(specs) != len(children):
+        raise ValueError(f"{len(specs)} specs for {len(children)} arguments")
+    out: List[Spec] = [None] * treedef.num_leaves
+    for spec, child in zip(specs, children):
+        if not is_spec(spec):
+            raise ValueError(f"not a PartitionSpec of one mesh axis: {spec!r}")
+        for i in pytree.tree_leaves(child):
+            out[i] = None if spec is None else tuple(spec)
+    return out
+
+
+def spec_dim(spec: Spec) -> Optional[int]:
+    """The dimension a spec splits, or None when it replicates."""
+    named = [i for i, e in enumerate(spec or ()) if e is not None]
+    return named[0] if named else None
+
+
+def _check_spec(spec, shape, n: int, what: str) -> None:
+    if spec is None:
+        return
+    if not isinstance(spec, list) or not all(e is None or isinstance(e, str)
+                                             for e in spec):
+        raise ValueError(f"{what}: spec {spec!r} is not a PartitionSpec")
+    named = [(i, e) for i, e in enumerate(spec) if e is not None]
+    if len(spec) > len(shape) or len(named) > 1:
+        raise ValueError(f"{what}: spec {spec} does not fit shape {list(shape)} "
+                         f"over one flat mesh axis")
+    if named and shape[named[0][0]] % n:
+        raise ValueError(f"{what}: dim {named[0][0]} of {list(shape)} does not "
+                         f"split over {n} devices")
+
+
+def check_shardings(shardings: Dict[str, Any]) -> Dict[str, Any]:
+    """Validate a sharded program's ``shardings.json`` (off the wire);
+    returns it."""
+    try:
+        n = shardings["nr_devices"]
+        pairs = [(shardings["in_specs"], shardings["in_shapes"], "input"),
+                 (shardings["out_specs"], shardings["out_shapes"], "output")]
+    except (KeyError, TypeError):
+        raise ValueError("program shardings lack nr_devices, specs or shapes") from None
+    if not isinstance(n, int) or not 2 <= n <= MAX_DEVICES:
+        raise ValueError(f"program shardings: nr_devices {n!r} not in 2..{MAX_DEVICES}")
+    axes = set()
+    for specs, shapes, what in pairs:
+        if not isinstance(specs, list) or not isinstance(shapes, list) or \
+                len(specs) != len(shapes):
+            raise ValueError(f"program shardings: {what} specs and shapes differ "
+                             f"in number")
+        for i, (spec, shape) in enumerate(zip(specs, shapes)):
+            if not isinstance(shape, list) or not all(
+                    isinstance(d, int) and d >= 0 for d in shape):
+                raise ValueError(f"program shardings: {what} {i} shape {shape!r}")
+            _check_spec(spec, shape, n, f"{what} {i}")
+            axes |= {e for e in spec or () if e is not None}
+    if len(axes) > 1:
+        raise ValueError(f"program shardings name {sorted(axes)}: one flat mesh "
+                         f"axis only")
+    return shardings
+
+
 def export_program(fn: Callable, specs: Sequence[Tuple[tuple, torch.dtype]],
-                   treedef) -> Tuple[bytes, object, List[Tuple[tuple, torch.dtype]]]:
+                   treedef, in_specs=None, out_specs=None, nr_devices: int = 1
+                   ) -> Tuple[bytes, object, List[Tuple[tuple, torch.dtype]]]:
     """Export ``fn`` at the flat signature ``specs`` ((shape, dtype) per
     leaf of the arguments, whose structure is ``treedef``).  Returns
-    (blob, the result's treedef, (shape, dtype) per result leaf)."""
+    (blob, the result's treedef, (shape, dtype) per result leaf).
+
+    With ``nr_devices`` > 1 the program is sharded: ``in_specs`` (one
+    spec, or one per argument) and ``out_specs`` (one spec, or one per
+    result leaf) go into the archive's ``shardings.json``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     # non-fake inputs allowed: an nn.Module's own parameters are real
@@ -115,8 +215,23 @@ def export_program(fn: Callable, specs: Sequence[Tuple[tuple, torch.dtype]],
             for node in gm.graph.nodes:
                 node.meta.pop("stack_trace", None)
     ep.example_inputs = None
+    extra = None
+    if nr_devices > 1:
+        outs = [None if out_specs is None else tuple(out_specs)] * len(out_sigs) \
+            if is_spec(out_specs) else [None if s is None else tuple(s)
+                                        for s in out_specs]
+        if len(outs) != len(out_sigs):
+            raise ValueError(f"{len(outs)} out_specs for {len(out_sigs)} results")
+        shardings = check_shardings({
+            "nr_devices": int(nr_devices),
+            "in_specs": [None if s is None else list(s)
+                         for s in flat_specs(in_specs, treedef)],
+            "in_shapes": [list(shape) for shape, _ in specs],
+            "out_specs": [None if s is None else list(s) for s in outs],
+            "out_shapes": [list(shape) for shape, _ in out_sigs]})
+        extra = {SHARDINGS: json.dumps(shardings, sort_keys=True)}
     buf = io.BytesIO()
-    torch.export.save(ep, buf)
+    torch.export.save(ep, buf, extra_files=extra)
     return buf.getvalue(), out_tree, out_sigs
 
 
@@ -186,11 +301,12 @@ def _node_targets(tree, out: set) -> set:
     return out
 
 
-def check_archive(blob: bytes) -> None:
+def check_archive(blob: bytes) -> Optional[Dict[str, Any]]:
     """Raise ``ValueError`` unless ``blob`` is an archive that
     ``torch.export.load`` reads without unpickling anything and whose
     graph calls only allowed targets.  Registers the port's custom
-    operators first (the flash kernel's ``tpf_torch::flash_attn_fwd``)."""
+    operators first (the flash kernel's ``tpf_torch::flash_attn_fwd``).
+    Returns a sharded program's checked shardings, else None."""
     from .. import ops  # noqa: F401 - registers tpf_torch:: before the check
 
     try:
@@ -201,7 +317,7 @@ def check_archive(blob: bytes) -> None:
     if not infos:
         raise ValueError("program archive is empty")
     root = infos[0].filename.split("/", 1)[0]
-    raw_ok, payloads, models = set(), set(), []
+    raw_ok, payloads, models, shardings = set(), set(), [], None
     for info in infos:
         prefix, _, name = info.filename.partition("/")
         if prefix != root or not name:
@@ -231,6 +347,11 @@ def check_archive(blob: bytes) -> None:
                 raw_ok.add(f"data/{kind}/{entry.get('path_name')}")
         elif _PAYLOAD.fullmatch(name):
             payloads.add(name)
+        elif name == "extra/" + SHARDINGS:
+            try:
+                shardings = check_shardings(json.loads(zf.read(info)))
+            except (ValueError, TypeError) as e:
+                raise ValueError(f"program archive {name}: {e}") from None
         else:
             raise ValueError(f"program archive member {name} is not part of "
                              f"the program format")
@@ -247,13 +368,32 @@ def check_archive(blob: bytes) -> None:
                  if not _allowed_target(t))
     if bad:
         raise ValueError(f"program calls targets a tenant may not: {bad[:5]}")
+    return shardings
 
 
-def load_program(blob: bytes, device: torch.device) -> Callable:
+def _user_shapes(ep) -> Tuple[List[list], List[list]]:
+    """The global shapes of a program's flat inputs and outputs."""
+    nodes = {n.name: n for n in ep.graph.nodes}
+    ins = [list(nodes[name].meta["val"].shape)
+           for name in ep.graph_signature.user_inputs]
+    out_node = next(n for n in ep.graph.nodes if n.op == "output")
+    outs = [list(a.meta["val"].shape) for a in out_node.args[0]
+            if isinstance(a, torch.fx.Node)]
+    return ins, outs
+
+
+def load_program(blob: bytes, device: torch.device
+                 ) -> Tuple[Callable, Optional[Dict[str, Any]]]:
     """Check, load and move a program to ``device``; returns the module
-    (flat tensors in, a tuple of flat tensors out)."""
+    (flat tensors in, a tuple of flat tensors out) and, for a sharded
+    program, its checked shardings."""
     from torch.export.passes import move_to_device_pass
 
-    check_archive(blob)
+    shardings = check_archive(blob)
     ep = torch.export.load(io.BytesIO(blob))
-    return move_to_device_pass(ep, str(device)).module()
+    if shardings is not None and _user_shapes(ep) != (
+            shardings["in_shapes"], shardings["out_shapes"]):
+        raise ValueError(f"program shardings name shapes {shardings['in_shapes']} -> "
+                         f"{shardings['out_shapes']}, the program's are "
+                         f"{_user_shapes(ep)}")
+    return move_to_device_pass(ep, str(device)).module(), shardings

@@ -17,8 +17,9 @@ the wire, ``raw_nbytes`` decoded, and ``enc``:
 Requests carry a ``seq`` the responder echoes, so a client pipelines
 many requests on one connection.  HELLO is always framed at version 2
 and negotiates the connection's version (``max_version``), QoS class
-(``qos``, v4) and q8 replies (``quant``, v6).  Version 3 adds device,
-client-minted id and ephemeral fields; v4 deadlines and structured
+(``qos``, v4) and q8 replies (``quant``, v6).  Version 3 adds the mesh
+fields (:data:`SHARD_MIN_VERSION`), client-minted ids and ephemeral
+buffers; v4 deadlines and structured
 ``BUSY`` / ``DEADLINE_EXCEEDED`` errors; v5 ``trace`` contexts and
 server ``trace_spans``; v6 q8; v7-v9 the federated, migration and
 peer-fabric kinds.  The registries below list every kind of the
@@ -54,6 +55,17 @@ VERSION = 9
 SUPPORTED_VERSIONS = (2, 3, 4, 5, 6, 7, 8, 9)
 #: version every HELLO is framed at, so any peer can read it
 HELLO_VERSION = 2
+#: lowest wire version that may carry the mesh fields (reference v3):
+#: COMPILE_OK ``nr_devices`` / ``arg_layouts`` / ``out_layouts`` (a list
+#: of ``{"device": id, "slices": [[lo, hi], ...]}`` an argument or result,
+#: null when replicated), EXECUTE ``arg_shards`` (per argument, null or
+#: its shards in layout order: a resident id, or null for the next inline
+#: buffer), PUT and FETCH ``device_id``; a sharded program compiles only
+#: on such a connection.  The client refuses to send them below it, the
+#: worker to honor them.  INFO's ``n_devices``, ``devices`` (``id``,
+#: ``coords``) and ``resident_bytes_per_device`` go to every version, as
+#: the reference's do.
+SHARD_MIN_VERSION = 3
 #: lowest wire version whose frames may carry ``enc="q8"`` buffers
 Q8_MIN_VERSION = 6
 #: lowest wire version that may carry KV_SHIP (the client refuses to

@@ -1,10 +1,25 @@
-"""Remote worker of the port: serves one device over TCP.
+"""Remote worker of the port: serves one device, or the ranks of a rank
+group as a mesh, over TCP.
 
-The single-device half of ``tensorfusion_tpu/remoting/worker.py``.  It
-runs on the GPU host (``python -m tensorfusion_tpu_torch.remoting``),
-accepts HELLO / INFO / COMPILE / PUT / FREE / FETCH / EXECUTE, and keeps
-an executable cache keyed by content hash so repeated clients share one
-loaded program.  A program is a ``torch.export`` archive
+The port's ``tensorfusion_tpu/remoting/worker.py``.  It runs on the GPU
+host (``python -m tensorfusion_tpu_torch.remoting``), accepts HELLO /
+INFO / COMPILE / PUT / FREE / FETCH / EXECUTE, and keeps an executable
+cache keyed by content hash so repeated clients share one loaded
+program.
+
+With ``ranks=n`` (``--ranks n``, n > 1) its devices are the n ranks of a
+``parallel.launch.RankGroup`` that it spawns at :meth:`start`
+(``remoting/sharded.py``; rank r on ``cuda:(r % count)``), and it
+serves protocol v3's sharded programs: COMPILE returns ``nr_devices``
+and a wire layout per argument and result, EXECUTE takes
+``arg_shards`` (resident or inline shards in layout order), PUT and
+FETCH a ``device_id``, INFO lists the devices and
+``resident_bytes_per_device`` (and, when the request asks with
+``ranks``, each rank's pid, launches and launch hook report).  Each rank runs the program on its own
+shards; the worker process itself never touches the card.  Such a
+worker refuses the kinds that need one device's state (GENERATE,
+KV_SHIP, the collectives, the fabric, SNAPSHOT / RESTORE, migration),
+naming what it refused.  A program is a ``torch.export`` archive
 (``remoting/program.py``), checked before it is loaded and moved to the
 worker's device; its flash attention runs the port's Hopper kernel there
 (the custom op picks the kernel from its tensors' device).
@@ -104,6 +119,7 @@ import json
 import logging
 import os
 import re
+import socket
 import socketserver
 import threading
 import time
@@ -119,6 +135,7 @@ from ..profiling.profiler import Profiler
 from ..profiling.recorder import FlightRecorder
 from ..tracing.core import Tracer
 from . import program, protocol
+from .sharded import RankDevices, RankError
 from .dispatch import BusyError, DeviceDispatcher, WorkItem, qos_weight
 from .fabric import PeerLinkPool
 from .protocol import recv_message, send_message
@@ -147,6 +164,14 @@ FABRIC_HOP_TIMEOUT_S = 20.0
 
 #: an executable id: the first 32 hex digits of its archive's sha256
 _EXE_ID = re.compile(r"[0-9a-f]{32}")
+
+#: request kinds a worker over several ranks refuses: each needs one
+#: device's resident state, an engine or a peer of one device
+_ONE_DEVICE_KINDS = ("GENERATE", "KV_SHIP", "ALLREDUCE_SHIP",
+                     "ALLGATHER_SHIP", "SNAPSHOT", "RESTORE",
+                     "SNAPSHOT_DELTA", "MIGRATE_FREEZE", "MIGRATE_COMMIT",
+                     "FABRIC_OPEN", "FABRIC_ALLREDUCE", "PEER_REDUCE",
+                     "PEER_INSTALL")
 
 
 def _exe_id(blob: bytes) -> str:
@@ -271,9 +296,19 @@ class RemoteVTPUWorker:
                  profiler: Optional[Profiler] = None,
                  recorder: Optional[FlightRecorder] = None,
                  device: DeviceLike = "cuda",
-                 state_root: Optional[str] = None):
-        #: the one device this worker owns; "cuda" without a card raises
+                 state_root: Optional[str] = None,
+                 ranks: int = 1):
+        #: the device this worker owns, or its ranks' device type (rank r
+        #: on ``cuda:(r % count)``); "cuda" without a card raises
         self.device = resolve_device(device)
+        if ranks < 1:
+            raise ValueError(f"ranks must be at least 1, got {ranks}")
+        if ranks > 1 and engine is not None:
+            raise ValueError("a worker over several ranks hosts no engine")
+        #: the number of devices; above 1 they are the ranks that
+        #: :meth:`start` spawns (``rank_devices``)
+        self.n_ranks = ranks
+        self.rank_devices: Optional[RankDevices] = None
         runner_dev = getattr(getattr(engine, "runner", None), "device", None)
         if runner_dev is not None and \
                 not _same_device(torch.device(runner_dev), self.device):
@@ -454,6 +489,9 @@ class RemoteVTPUWorker:
         #: the paged pool's footprint, charged at start() like any
         #: resident buffer and released at stop()
         self._engine_pool_bytes = 0
+        #: the sockets of open connections (stop() ends them)
+        # guarded by: _lock
+        self._conns: set = set()
         outer = self
 
         class Handler(socketserver.BaseRequestHandler):
@@ -462,6 +500,8 @@ class RemoteVTPUWorker:
 
                 self.request.setsockopt(_socket.IPPROTO_TCP,
                                         _socket.TCP_NODELAY, 1)
+                with outer._lock:
+                    outer._conns.add(self.request)
                 # wire version for this connection: starts at 2 (every
                 # peer reads v2 frames), raised by the HELLO negotiation
                 self.wire_version = 2
@@ -477,6 +517,10 @@ class RemoteVTPUWorker:
                 #: per-connection q8 scratch for reply frames (reset per
                 #: message under the write lock)
                 self.pool = protocol.BufferPool()
+
+            def finish(self):
+                with outer._lock:
+                    outer._conns.discard(self.request)
 
             def requant(self) -> None:
                 want = outer.quantize if outer.quantize is not None \
@@ -525,6 +569,10 @@ class RemoteVTPUWorker:
                                 "kv_bufs", "acc_bufs"):
                         if meta.get(key) is not None:
                             meta[key] = [xid(v) for v in meta[key]]
+                    if isinstance(meta.get("arg_shards"), list):
+                        meta["arg_shards"] = [
+                            None if g is None else [xid(v) for v in g]
+                            for g in meta["arg_shards"]]
                     meta["_conn_ns"] = conn_ns
                     meta["_wire_version"] = self.wire_version
                     meta["_quant_on"] = self.quant_on
@@ -600,6 +648,14 @@ class RemoteVTPUWorker:
                             self.requant()
                             continue
                         try:
+                            if kind in _ONE_DEVICE_KINDS and \
+                                    outer.n_ranks > 1:
+                                reply("ERROR", {
+                                    "error": f"{kind} is not served by a "
+                                             f"worker over {outer.n_ranks} "
+                                             f"ranks (it needs one device)"},
+                                      [])
+                                continue
                             if kind == "EXECUTE":
                                 # enqueue for the central dispatcher and
                                 # go straight back to decoding
@@ -715,6 +771,8 @@ class RemoteVTPUWorker:
         return f"tcp://127.0.0.1:{self.port}"
 
     def start(self) -> None:
+        if self.n_ranks > 1:
+            self._start_ranks()
         self.dispatcher.start()
         if self.engine is not None:
             pool_bytes = int(getattr(self.engine.runner, "nbytes", 0) or 0)
@@ -756,6 +814,15 @@ class RemoteVTPUWorker:
         self._peer_pool.close()
         self._server.shutdown()
         self._server.server_close()
+        # end the connections still open: their handler threads hold this
+        # worker (and its engine, buffers and ranks) for as long as they run
+        with self._lock:
+            conns, self._conns = list(self._conns), set()
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
         self.dispatcher.stop()
         if self.engine is not None:
             self.engine.stop()
@@ -764,6 +831,22 @@ class RemoteVTPUWorker:
             pool, self._copy_pool = self._copy_pool, None
         if pool is not None:
             pool.shutdown(wait=True)
+        if self.rank_devices is not None:
+            self.rank_devices.close()
+
+    def _start_ranks(self) -> None:
+        """Spawn the ranks.  Under the node agent's launch hook this
+        process joins its tenant's segment first (the ranks inherit the
+        hook and each joins at its first launch), so the segment lists
+        every process of the tenant."""
+        from ..hypervisor import cuda_hook_binding
+
+        hook = cuda_hook_binding.loaded()
+        if hook is not None:
+            hook.metered()
+        self.rank_devices = RankDevices(
+            self.n_ranks, self.device, self._lock,
+            admit=self._admit_resident, release=self._release_bytes)
 
     def _release_engine_pool(self) -> None:
         """Release exactly the pool charge :meth:`start` made."""
@@ -808,7 +891,9 @@ class RemoteVTPUWorker:
         return arr.numel() * arr.element_size()
 
     def _release_resident(self, arr) -> None:   # holds _lock
-        nbytes = self._leaf_nbytes(arr)
+        self._release_bytes(self._leaf_nbytes(arr))
+
+    def _release_bytes(self, nbytes: int) -> None:   # holds _lock
         self.resident_bytes = max(0, self.resident_bytes - nbytes)
         if self.meter_client is not None:
             self.meter_client.charge_hbm(-nbytes)
@@ -876,12 +961,18 @@ class RemoteVTPUWorker:
         backpressure)."""
         exe_id = meta["exe_id"]
         with self._lock:
-            known = exe_id in self._exe_cache
+            known = exe_id in self._exe_cache or (
+                self.rank_devices is not None
+                and exe_id in self.rank_devices.exes)
             mflops = self._exe_costs.get(exe_id, 1)
             batchable = exe_id in self._exe_microbatch
         if not known:
             reply("ERROR", {"error": f"unknown executable {exe_id}",
                             "code": "needs_compile"}, [])
+            return
+        if meta.get("arg_shards") is not None and \
+                not self._version_gate(reply, meta, "arg_shards",
+                                       protocol.SHARD_MIN_VERSION):
             return
         v4 = meta.get("_wire_version", 2) >= 4
         deadline_t = None
@@ -1574,7 +1665,12 @@ class RemoteVTPUWorker:
         """Check and load an archive onto this worker's device; the move
         of its constants is device work, so it enters the gate."""
         with DEVICE_GATE.shared():
-            return program.load_program(blob, self.device)
+            module, shardings = program.load_program(blob, self.device)
+        if shardings is not None:
+            raise ValueError(f"executable is sharded over "
+                             f"{shardings['nr_devices']} devices but this "
+                             f"worker has 1")
+        return module
 
     def _load_archive(self, exe_id: str, blob: bytes, mflops: int) -> None:
         """Load an archive from a snapshot directory or a migrating peer,
@@ -2269,6 +2365,8 @@ class RemoteVTPUWorker:
 
     def _execute_one(self, item: WorkItem, peek_next):
         """Single-request launch, on the dispatcher thread."""
+        if self.rank_devices is not None:
+            return self._execute_ranks(item)
         meta, reply = item.meta, item.reply
         exe_id = meta["exe_id"]
         with self._lock:
@@ -2305,36 +2403,16 @@ class RemoteVTPUWorker:
             # park results device-side, hand back references; a client
             # may pre-assign result ids ("c-" namespace) so its very next
             # EXECUTE can reference them without waiting for this reply
-            want_ids = meta.get("result_ids")
-            if want_ids is not None:
-                if len(want_ids) != len(leaves):
-                    self._safe_reply(
-                        item, "ERROR",
-                        {"error": f"result_ids count {len(want_ids)} "
-                                  f"!= {len(leaves)} results"}, [])
-                    return None
-                ns = meta.get("_conn_ns", "")
-                if not all(str(i).startswith(ns) for i in want_ids):
-                    # only ids the connection-namespace remap produced
-                    # are accepted — a raw id could clobber another
-                    # client's (or worker-minted) buffer
-                    self._safe_reply(item, "ERROR",
-                                     {"error": "result_ids must be "
-                                               "c-namespace ids"}, [])
-                    return None
-            ids, shapes, dtypes = [], [], []
+            ids = self._result_ids(item, len(leaves))
+            if ids is None:
+                return None
+            shapes, dtypes = [], []
             with self._lock:
                 total = sum(self._leaf_nbytes(l) for l in leaves)
                 err = self._admit_resident(total)
-                for j, leaf in enumerate(leaves if not err else ()):
-                    if want_ids is not None:
-                        buf_id = str(want_ids[j])
-                    else:
-                        self._buf_seq += 1
-                        buf_id = f"buf-{self._buf_seq}"
+                for buf_id, leaf in zip(ids, leaves if not err else ()):
                     self._buffers[buf_id] = leaf
                     self._touch_buf(buf_id)
-                    ids.append(buf_id)
                     shapes.append(list(leaf.shape))
                     dtypes.append(protocol.WIRE_NAMES[leaf.dtype])
             if err:
@@ -2372,12 +2450,89 @@ class RemoteVTPUWorker:
 
         return flush
 
+    def _result_ids(self, item: WorkItem, n_results: int):
+        """A keep_results EXECUTE's ids: the client's (``c-`` ids of its
+        connection, one a result) or minted here; None after replying
+        ERROR."""
+        want_ids = item.meta.get("result_ids")
+        if want_ids is None:
+            with self._lock:
+                start, self._buf_seq = self._buf_seq, self._buf_seq + n_results
+            return [f"buf-{start + j + 1}" for j in range(n_results)]
+        if len(want_ids) != n_results:
+            self._safe_reply(item, "ERROR",
+                             {"error": f"result_ids count {len(want_ids)} "
+                                       f"!= {n_results} results"}, [])
+            return None
+        ns = item.meta.get("_conn_ns", "")
+        if not all(str(i).startswith(ns) for i in want_ids):
+            # only ids the connection-namespace remap produced: a raw id
+            # could clobber another client's (or a worker-minted) buffer
+            self._safe_reply(item, "ERROR",
+                             {"error": "result_ids must be c-namespace ids"},
+                             [])
+            return None
+        return [str(i) for i in want_ids]
+
+    def _execute_ranks(self, item: WorkItem):
+        """An EXECUTE on the ranks, on the dispatcher thread: the ranks
+        run it and answer, so the reply goes out at once (there is no
+        device copy left to defer)."""
+        meta = item.meta
+        exe_id = meta["exe_id"]
+        ranks = self.rank_devices
+        with self._lock:
+            mflops = self._exe_costs.get(exe_id, 1)
+            shardings = ranks.exes.get(exe_id)
+        if self.meter_client is not None:
+            self.meter_client.charge_launch(mflops)
+        ids = None
+        if meta.get("keep_results"):
+            n_out = len(shardings["out_shapes"]) if shardings is not None \
+                else len(meta.get("result_ids") or ()) or None
+            if n_out is None:
+                self._safe_reply(item, "ERROR", {
+                    "error": "keep_results of a one-device program on a "
+                             "worker over ranks needs result_ids"}, [])
+                return None
+            ids = self._result_ids(item, n_out)
+            if ids is None:
+                return None
+        item.meta["_enq_m"] = time.monotonic()
+        try:
+            with DEVICE_GATE.shared():
+                out = ranks.execute(exe_id, meta.get("arg_refs"),
+                                    meta.get("arg_shards"), item.buffers, ids)
+        except KeyError as e:
+            self._safe_reply(item, "ERROR", {"error": str(e.args[0])}, [])
+            return None
+        except (RankError, RuntimeError, ValueError) as e:
+            log.exception("EXECUTE on the ranks failed")
+            self._safe_reply(item, "ERROR", {"error": str(e)}, [])
+            return None
+        self.executions += 1
+        self._attr_flush_compute([item], time.monotonic())
+        if ids is not None:
+            if not meta.get("quiet"):
+                self._safe_reply(item, "EXECUTE_OK", self._traced_meta(
+                    item, {"result_refs": out["refs"], "shapes": out["shapes"],
+                           "dtypes": [protocol.WIRE_NAMES[d]
+                                      for d in out["dtypes"]]}), [])
+            return None
+        results = out["results"]
+        self._safe_reply(item, "EXECUTE_OK", self._traced_meta(
+            item, {"n_results": len(results)}), results, compress=True)
+        return None
+
     # ------------------------------------------------------------------
 
     def _info(self, meta) -> dict:
         dev = self.device
-        kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
-            else "cpu"
+        if self.rank_devices is not None:   # this process stays off the card
+            kind = self.rank_devices.infos[0]["kind"]
+        else:
+            kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+                else "cpu"
         platform = "gpu" if dev.type == "cuda" else dev.type
         with self._lock:
             snapshot = dict(self._buffers)
@@ -2391,17 +2546,38 @@ class RemoteVTPUWorker:
                 continue
         with self._lock:
             wire = dict(self._wire_stats)
-            cached_executables = len(self._exe_cache)
+            cached_executables = len(self._exe_cache) + (
+                len(self.rank_devices.exes) if self.rank_devices else 0)
             resident_bytes = self.resident_bytes
         if wire.get("raw_bytes"):
             # realized adaptive-compression ratio: wire bytes actually
             # sent / raw bytes they encode
             wire["realized_ratio"] = round(
                 wire.get("wire_bytes", 0) / wire["raw_bytes"], 4)
+        devices = [{"id": 0, "platform": platform, "device_kind": kind,
+                    "process_index": 0, "coords": [0]}]
+        per_device = {"0": resident}
+        ranks = None
+        if self.rank_devices is not None:
+            devices = [{"id": r, "platform": platform, "device_kind": kind,
+                        "process_index": 0, "coords": [r]}
+                       for r in range(self.n_ranks)]
+            per_device = self.rank_devices.resident_per_device()
+        if self.rank_devices is not None and meta.get("ranks"):
+            # asked for: a call on every rank, which waits behind the
+            # ranks' work in flight
+            with DEVICE_GATE.shared():
+                ranks = self.rank_devices.stats()
+            from ..hypervisor import cuda_hook_binding
+
+            hook = cuda_hook_binding.loaded()
+            ranks = {"worker": {"pid": os.getpid(),
+                                "hook": hook.report() if hook else None},
+                     "ranks": ranks}
         return {
             "platform": platform,
             "device_kind": kind,
-            "n_devices": 1,
+            "n_devices": len(devices),
             "protocol_version": self.protocol_version,
             "quant_on": bool(meta.get("_quant_on")),
             "upload_overlap": self.upload_stats(),
@@ -2415,10 +2591,9 @@ class RemoteVTPUWorker:
             "fabric": self.fabric_stats(),
             "worker_uid": self.worker_uid,
             "wire_compression": wire,
-            "devices": [{"id": 0, "platform": platform,
-                         "device_kind": kind, "process_index": 0,
-                         "coords": [0]}],
-            "resident_bytes_per_device": {"0": resident},
+            "devices": devices,
+            "resident_bytes_per_device": per_device,
+            "ranks": ranks,
             "cached_executables": cached_executables,
             "resident_bytes": resident_bytes}
 
@@ -2429,6 +2604,9 @@ class RemoteVTPUWorker:
         handler replies ERROR."""
         blob = buffers[0].numpy().tobytes() if buffers else b""
         exe_id = hashlib.sha256(blob).hexdigest()[:32]
+        if self.rank_devices is not None:
+            self._compile_ranks(reply, meta, blob, exe_id)
+            return
         with self._lock:
             known = exe_id in self._exe_cache
         if not known:
@@ -2445,6 +2623,26 @@ class RemoteVTPUWorker:
                 self._exe_microbatch.add(exe_id)
         reply("COMPILE_OK", {"exe_id": exe_id}, [])
 
+    def _compile_ranks(self, reply, meta, blob: bytes, exe_id: str) -> None:
+        """COMPILE on a worker over ranks: the archive is checked here and
+        loaded on every rank; a sharded one answers with its layouts (and
+        needs a v3 connection, whose client can send shards)."""
+        ranks = self.rank_devices
+        with self._lock:
+            known = exe_id in ranks.exes
+        if not known:
+            shardings = program.check_archive(blob)
+            if shardings is not None and not self._version_gate(
+                    reply, meta, f"an executable sharded over "
+                    f"{shardings['nr_devices']} devices", protocol.SHARD_MIN_VERSION):
+                return
+            with DEVICE_GATE.shared():
+                ranks.compile(exe_id, blob)
+            with self._lock:
+                self._exe_blobs[exe_id] = blob
+                self._exe_costs[exe_id] = int(meta.get("mflops_hint", 1))
+        reply("COMPILE_OK", dict(ranks.layouts(exe_id), exe_id=exe_id), [])
+
     def _put(self, reply, meta, buffers) -> None:
         """PUT: a device-resident buffer, uploaded once and referenced
         many times.  v3: a client-minted ``buf_id`` (``c-`` namespace)
@@ -2453,16 +2651,33 @@ class RemoteVTPUWorker:
         consumer takes it (``_take_shard``)."""
         host = buffers[0]
         v3 = meta.get("_wire_version", 2) >= 3
-        device_id = int(meta.get("device_id", 0)) if v3 else 0
-        if device_id != 0:
+        if meta.get("device_id") is not None and not self._version_gate(
+                reply, meta, "PUT device_id", protocol.SHARD_MIN_VERSION):
+            return
+        device_id = int(meta.get("device_id", 0))
+        if not 0 <= device_id < self.n_ranks:
             reply("ERROR", {"error": f"no device {device_id} "
-                                     f"(worker has 1)"}, [])
+                                     f"(worker has {self.n_ranks})"}, [])
             return
         want_id = meta.get("buf_id") if v3 else None
         if want_id is not None and \
                 not str(want_id).startswith(meta.get("_conn_ns", "")):
             reply("ERROR", {"error": "client-minted buf_id must be "
                                      "a c-namespace id"}, [])
+            return
+        if self.rank_devices is not None:
+            if want_id is None:
+                with self._lock:
+                    self._buf_seq += 1
+                    want_id = f"buf-{self._buf_seq}"
+            with DEVICE_GATE.shared():
+                err = self.rank_devices.put(str(want_id), host, device_id,
+                                            v3 and bool(meta.get("ephemeral")))
+            if err:
+                reply("ERROR", {"error": err}, [])
+            elif not (v3 and meta.get("quiet")):
+                reply("PUT_OK", {"buf_id": str(want_id),
+                                 "device_id": device_id}, [])
             return
         with self._lock:
             err = self._admit_resident(self._leaf_nbytes(host))
@@ -2497,20 +2712,44 @@ class RemoteVTPUWorker:
         reply("PUT_OK", {"buf_id": buf_id, "device_id": 0}, [])
 
     def _free(self, reply, meta) -> None:
-        freed = 0
-        for buf_id in list(meta.get("buf_ids", [])):
-            with self._lock:
-                arr = self._pop_buffer(buf_id)
-            if arr is not None:
-                arr = self._resolve(arr)    # async PUT still in flight
+        ids = list(meta.get("buf_ids", []))
+        if self.rank_devices is not None:
+            with DEVICE_GATE.shared():
+                freed = self.rank_devices.free(ids)
+        else:
+            freed = 0
+            for buf_id in ids:
                 with self._lock:
-                    self._release_resident(arr)
-                freed += 1
+                    arr = self._pop_buffer(buf_id)
+                if arr is not None:
+                    arr = self._resolve(arr)    # async PUT still in flight
+                    with self._lock:
+                        self._release_resident(arr)
+                    freed += 1
         if meta.get("quiet") and meta.get("_wire_version", 2) >= 3:
             return
         reply("FREE_OK", {"freed": freed}, [])
 
     def _fetch(self, reply, meta) -> None:
+        want = meta.get("device_id")
+        if want is not None and not self._version_gate(
+                reply, meta, "FETCH device_id", protocol.SHARD_MIN_VERSION):
+            return
+        if self.rank_devices is not None:
+            try:
+                with DEVICE_GATE.shared():
+                    host, dev = self.rank_devices.fetch(
+                        meta["buf_id"], None if want is None else int(want))
+            except KeyError as e:
+                reply("ERROR", {"error": str(e.args[0])}, [])
+                return
+            reply("FETCH_OK", {} if want is None else {"device_id": dev},
+                  [host], compress=True)
+            return
+        if want is not None and int(want) != 0:
+            reply("ERROR", {"error": f"buffer {meta['buf_id']} has no shard "
+                                     f"on device {want}"}, [])
+            return
         with self._lock:
             arr = self._buffers.get(meta["buf_id"])
         if arr is None:

@@ -11,8 +11,11 @@ and the layout check of its hand-declared driver types.
 
 import json
 import os
+import socket
 import subprocess
 import sys
+import time
+import urllib.request
 
 import pytest
 
@@ -209,6 +212,104 @@ def test_worker_env_preloads_the_hook(mock_provider_lib, limiter_lib, built, tmp
         workers.remove_worker("ns/w")
     finally:
         devices.stop()
+
+
+RANK_TENANT = r"""
+import json, os, sys, time
+sys.path[:0] = [sys.argv[1], os.path.join(sys.argv[1], "tests")]
+import torch_rank_tasks
+from tensorfusion_tpu_torch.hypervisor import cuda_hook_binding
+from tensorfusion_tpu_torch.parallel import RankGroup
+
+hook = cuda_hook_binding.loaded()
+assert hook is not None and hook.metered()     # this process joins the segment
+with RankGroup(int(sys.argv[3]), device="cpu", backend="gloo", timeout_s=120) as group:
+    ranks = group.run(torch_rank_tasks.hooked_launches, 7)
+parent = {"pid": os.getpid(), "hook": hook.report(),
+          "env": {k: os.environ.get(k) for k in torch_rank_tasks.HOOK_ENV}}
+with open(sys.argv[2] + ".tmp", "w") as f:
+    json.dump({"parent": parent, "ranks": ranks}, f)
+os.replace(sys.argv[2] + ".tmp", sys.argv[2])
+time.sleep(600)      # the backend restarts a worker that exits
+"""
+
+
+@pytest.mark.parametrize("n_ranks", [2, 4])
+def test_daemon_spawned_rank_group_is_metered_as_one_tenant(built, native_build, tmp_path,
+                                                            n_ranks):
+    """A soft worker spawned by the daemon (``python -m
+    tensorfusion_tpu_torch.hypervisor`` over the mock provider) whose
+    command starts a rank group, each rank launching through the stand-in
+    driver: every rank inherits the hook's variables and registers its
+    pid in the one segment beside the worker's own, and the segment's
+    launches and charges are the sum of the processes' hook reports."""
+    out = tmp_path / "tenant.json"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        free = s.getsockname()[1]
+    env = {k: v for k, v in _env(built, preload=False).items()
+           if not k.startswith("TPF_MOCK_")}
+    log = open(tmp_path / "daemon.log", "w")
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "tensorfusion_tpu_torch.hypervisor",
+         "--provider", str(native_build / "libtpf_provider_mock.so"),
+         "--limiter", str(native_build / "libtpf_limiter.so"),
+         "--shm-base", str(tmp_path / "shm"), "--state-dir", str(tmp_path / "state"),
+         "--snapshot-dir", str(tmp_path / "snap"), "--port", str(free),
+         "--api-token", "t"],
+        env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{free}"
+
+    def api(path, method="GET", body=None):
+        req = urllib.request.Request(url + path, method=method, headers={
+            "X-TPF-Token": "t", "Content-Type": "application/json"},
+            data=None if body is None else json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return json.loads(r.read())
+
+    try:
+        deadline = time.time() + 60
+        while True:
+            try:
+                chip = api("/api/v1/devices")[0]["info"]["chip_id"]
+                break
+            except OSError:
+                assert time.time() < deadline and daemon.poll() is None, \
+                    (tmp_path / "daemon.log").read_text()[-2000:]
+                time.sleep(0.3)
+        spec = {"namespace": "d", "name": "ranks", "isolation": "soft", "qos": "medium",
+                "devices": [{"chip_id": chip, "duty_percent": 50.0, "hbm_bytes": 1 << 30}],
+                "env": {"LD_LIBRARY_PATH": built["fake_dir"],
+                        "TPF_FAKE_CUDA_LAUNCH_US": "500"},
+                "command": [sys.executable, "-c", RANK_TENANT, REPO, str(out),
+                            str(n_ranks)]}
+        wenv = api("/api/v1/workers", "POST", spec)["status"]["env"]
+        deadline = time.time() + 120
+        while not out.exists():
+            assert time.time() < deadline and daemon.poll() is None, \
+                (tmp_path / "daemon.log").read_text()[-2000:]
+            time.sleep(0.3)
+        got = json.loads(out.read_text())
+        state = _segment(wenv[constants.ENV_SHM_PATH])
+        api("/api/v1/workers/d/ranks", "DELETE")
+    finally:
+        daemon.terminate()
+        try:
+            daemon.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            daemon.kill()
+        log.close()
+    procs = [got["parent"]] + got["ranks"]
+    assert len(got["ranks"]) == n_ranks
+    assert sorted(state.pids) == sorted(p["pid"] for p in procs)
+    for p in got["ranks"]:
+        assert p["env"] == got["parent"]["env"]
+        assert p["env"]["LD_PRELOAD"].split(":")[0] == built["hook"]
+        assert p["hook"]["metered"] == 1 and p["hook"]["launches"] == 7
+    assert got["parent"]["hook"]["launches"] == 0
+    dev = state.devices[0]
+    assert dev.launches == sum(p["hook"]["charges"] for p in procs) > 0
+    assert dev.total_charged_mflop == sum(p["hook"]["charged_mflops"] for p in procs) > 0
 
 
 def test_python_and_torch_load_under_the_hook(built):

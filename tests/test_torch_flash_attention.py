@@ -143,6 +143,8 @@ _FORBIDDEN = re.compile(
 
 def test_port_sources_import_no_jax_and_no_reference_package():
     assert len(_PORT_FILES) > 10
+    assert REPO / "tensorfusion_tpu_torch" / "remoting" / "sharded.py" in _PORT_FILES
+    assert REPO / "tensorfusion_tpu_torch" / "profile_shard.py" in _PORT_FILES
     bad = [str(p.relative_to(REPO)) for p in _PORT_FILES
            if _FORBIDDEN.search(p.read_text())]
     assert not bad, f"port files importing jax or tensorfusion_tpu: {bad}"

@@ -11,6 +11,7 @@ import os
 import socket
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -532,6 +533,96 @@ def test_worker_tick_pushes_the_overcharge_into_the_refill(stacks, clock, monkey
         charged={("ns/a", 0): 0.5, ("ns/b", 0): 0.5})
     s.workers.remove_worker("ns/a")
     assert list(s.workers._cards[chip].charged) == [("ns/b", 0)]
+
+
+def test_frozen_workers_refused_charges_are_not_hunger(stacks, clock):
+    """A tenant frozen while it keeps trying to launch (the limiter refuses
+    and counts each charge as blocked) keeps the refill and capacity it
+    had before the freeze, and resumes at its earlier ERL share.
+    Counting those refusals as hunger
+    gave the frozen tenant the card's spare share and a larger burst."""
+    s = stacks["port"]
+    chip = s.devices.devices()[0].info.chip_id
+    for name, duty, qos in (("lo", 25.0, "low"), ("hi", 75.0, "high")):
+        s.workers.add_worker(_spec(port, name, chip, duty=duty, qos=qos))
+    client = port.Limiter(fresh_library(s.limiter.lib_path, "frozenclient"))
+    client.attach(s.workers.get("ns/hi").shm_path)
+
+    def hi_bucket():
+        d = s.workers.get("ns/hi").view.read().devices[0]
+        return d.refill_mflop_per_s, d.capacity_mflop
+
+    for _ in range(5):
+        clock.advance(0.1)
+        s.workers.tick()
+    before, share = hi_bucket(), s.workers.erl.share("ns/hi", 0)
+    s.workers.freeze_worker("ns/hi")
+    blocked0 = s.workers.get("ns/hi").view.read().devices[0].blocked_events
+    for _ in range(20):
+        for _ in range(3):
+            result = client.charge_compute(0, 1000)
+            assert not result.allowed and result.frozen
+        clock.advance(0.1)
+        s.workers.tick()
+        assert hi_bucket() == before
+    assert s.workers.get("ns/hi").view.read().devices[0].blocked_events == blocked0 + 60
+    assert s.workers.erl.share("ns/hi", 0) == share
+    s.workers.resume_worker("ns/hi")
+    clock.advance(0.1)
+    s.workers.tick()
+    assert s.workers.erl.share("ns/hi", 0) == share
+
+
+def test_a_freeze_waits_for_the_tick_in_flight(stacks, clock, monkeypatch):
+    """A tick that read a hungry tenant as running, and is frozen before it
+    pushes the quota it computed, would still move the frozen bucket.  A
+    freeze waits for the tick in flight, so the bucket it leaves is the
+    one the tenant keeps while frozen."""
+    s = stacks["port"]
+    chip = s.devices.devices()[0].info.chip_id
+    for name, duty, qos in (("lo", 25.0, "low"), ("hi", 75.0, "high")):
+        s.workers.add_worker(_spec(port, name, chip, duty=duty, qos=qos))
+    client = port.Limiter(fresh_library(s.limiter.lib_path, "inflightclient"))
+    client.attach(s.workers.get("ns/hi").shm_path)
+
+    def hi_bucket():
+        d = s.workers.get("ns/hi").view.read().devices[0]
+        return d.refill_mflop_per_s, d.capacity_mflop
+
+    for _ in range(5):
+        clock.advance(0.1)
+        s.workers.tick()
+    before = hi_bucket()
+    # hi hits its bucket's wall: the next tick reads it as hungry
+    assert not client.charge_compute(0, 10**15).allowed
+    inside, release = threading.Event(), threading.Event()
+    card_shares = s.workers._card_shares
+
+    def held(charged, peaks):
+        inside.set()
+        release.wait(10)
+        return card_shares(charged, peaks)
+
+    monkeypatch.setattr(s.workers, "_card_shares", held)
+    clock.advance(0.1)
+    ticker = threading.Thread(target=s.workers.tick)
+    ticker.start()
+    assert inside.wait(10)
+    at_freeze = []
+    freezer = threading.Thread(
+        target=lambda: (s.workers.freeze_worker("ns/hi"), at_freeze.append(hi_bucket())))
+    freezer.start()
+    freezer.join(0.3)
+    release.set()
+    ticker.join(10)
+    freezer.join(10)
+    assert hi_bucket() != before            # the tick in flight raised hi's share
+    assert at_freeze == [hi_bucket()]
+    for _ in range(10):
+        assert not client.charge_compute(0, 1000).allowed
+        clock.advance(0.1)
+        s.workers.tick()
+        assert hi_bucket() == at_freeze[0]
 
 
 def test_auto_freeze_and_orphan_cleanup_equal(stacks, clock, tmp_path):

@@ -1050,3 +1050,125 @@ def test_soft_tenant_through_the_daemon_is_charged_for_every_call(gen, limiter_l
     finally:
         daemon.terminate()
         daemon.wait(timeout=30)
+
+
+def test_sharded_worker_under_the_daemon_on_the_card(gen, limiter_lib, tmp_path):
+    """The sharded remote EXECUTE as one metered tenant on the card: the
+    daemon spawns ``python -m tensorfusion_tpu_torch.remoting --ranks 2``
+    with the launch hook preloaded.  (a) A bf16 flash Llama's last-position
+    logits, weights resident and replicated, tokens batch-sharded, within
+    the remote phase's bf16 rule of the local call, with the flash kernel
+    launched on both ranks; (b) an MLP with column- and row-sharded
+    resident weights within the same rule, a shard fetched per device bit
+    for bit, nothing resident after free and per-call shards; (c) the
+    segment lists the worker and both ranks and holds exactly their hook
+    reports' charges."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    from tensorfusion_tpu_torch import remoting
+    from tensorfusion_tpu_torch.hypervisor import ShmView
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "tensorfusion_tpu_torch.hypervisor",
+         "--limiter", limiter_lib, "--shm-base", str(tmp_path / "shm"),
+         "--state-dir", str(tmp_path / "state"), "--snapshot-dir", str(tmp_path / "snap"),
+         "--port", "0", "--port-file", str(tmp_path / "port"), "--api-token", "t"],
+        cwd=repo, stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+
+    def api(path, method="GET", body=None):
+        url = f"http://127.0.0.1:{(tmp_path / 'port').read_text()}"
+        req = urllib.request.Request(url + path, method=method,
+                                     data=json.dumps(body).encode() if body else None,
+                                     headers={"X-TPF-Token": "t"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return json.loads(r.read())
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), attn_impl="flash",
+                              dtype=torch.bfloat16, dim=256, n_heads=2, n_kv_heads=2,
+                              ffn_dim=512, max_seq_len=256)
+    params = llama.init_params(cfg, gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen, device="cuda")
+
+    def last(p, t, c=cfg):
+        return llama.forward(p, t, c)[:, -1].float()
+
+    want = last(params, tokens)
+    exact = last(torch.utils._pytree.tree_map(lambda t: t.float(), params), tokens,
+                 dataclasses.replace(cfg, dtype=torch.float32, attn_impl="full"))
+    full = last(params, tokens, dataclasses.replace(cfg, attn_impl="full"))
+    host = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
+    try:
+        deadline = time.time() + 240
+        while not ((tmp_path / "port").exists() and (tmp_path / "port").read_text()):
+            assert time.time() < deadline and daemon.poll() is None
+            time.sleep(0.2)
+        time.sleep(0.5)
+        chip = api("/api/v1/devices")[0]["info"]["chip_id"]
+        env = api("/api/v1/workers", "POST", {
+            "namespace": "t", "name": "ranks", "isolation": "soft",
+            "devices": [{"chip_id": chip, "duty_percent": 100, "hbm_bytes": 16 << 30}],
+            "command": [sys.executable, "-m", "tensorfusion_tpu_torch.remoting",
+                        "--ranks", "2", "--host", "127.0.0.1", "--port", "0",
+                        "--port-file", str(tmp_path / "worker.port")]})["status"]["env"]
+        while not (tmp_path / "worker.port").exists():
+            assert time.time() < deadline and daemon.poll() is None
+            time.sleep(0.2)
+        dev = remoting.RemoteDevice(f"tcp://127.0.0.1:{(tmp_path / 'worker.port').read_text()}",
+                                    timeout_s=300)
+        view = ShmView(env["TPF_SHM_PATH"])
+        try:
+            rparams = torch.utils._pytree.tree_map(dev.put, host)
+            remote = dev.remote_jit(last, in_specs=(None, ("b",)), out_specs=("b",))
+            got = remote(rparams, tokens.cpu()).cuda()
+            assert rel(got, exact) <= 1.5 * rel(full, exact), (rel(got, exact),
+                                                                rel(full, exact))
+            for leaf in torch.utils._pytree.tree_leaves(rparams):
+                leaf.free()
+            mlp = dev.remote_jit(
+                lambda w1, w3, w2, x: llama._mlp({"w_gate": w1, "w_up": w3, "w_down": w2}, x),
+                in_specs=((None, "m"), (None, "m"), ("m", None), None), out_specs=None)
+            ws = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) / 16
+                  for s in ((256, 1024), (256, 1024), (1024, 256))]
+            x = torch.randn((128, 256), generator=gen, device="cuda").to(torch.bfloat16)
+            local = llama._mlp({"w_gate": ws[0], "w_up": ws[1], "w_down": ws[2]}, x)
+            exact_mlp = llama._mlp({"w_gate": ws[0].float(), "w_up": ws[1].float(),
+                                    "w_down": ws[2].float()}, x.float())
+            hw = [w.cpu() for w in ws]
+            refs = [mlp.upload_arg(i, w, *hw, x.cpu()) for i, w in enumerate(hw)]
+            got = mlp(*refs, x.cpu()).cuda()
+            assert rel(got, exact_mlp) <= 1.5 * rel(local, exact_mlp)
+            ent = refs[2].layout[1]
+            _, meta, bufs = dev._rpc("FETCH", {"buf_id": refs[2].shard_ids[1],
+                                               "device_id": 1}, [])
+            assert torch.equal(bufs[0], hw[2][tuple(slice(a, b) for a, b in ent["slices"])])
+            for ref in refs:
+                ref.free()
+            mlp(*hw, x.cpu())
+            info = dev.info(ranks=True)
+            assert not any(info["resident_bytes_per_device"].values())
+            ranks = info["ranks"]
+            assert all(r["launch_counts"]["flash_attn_fwd"] == cfg.n_layers
+                       for r in ranks["ranks"])
+            seg = view.read()
+            reports = [ranks["worker"]["hook"]] + [r["hook"] for r in ranks["ranks"]]
+            assert sorted(seg.pids) == sorted([ranks["worker"]["pid"]]
+                                              + [r["pid"] for r in ranks["ranks"]])
+            assert seg.devices[0].launches == sum(r["charges"] for r in reports) > 0
+            assert seg.devices[0].total_charged_mflop == sum(
+                r["charged_mflops"] for r in reports)
+        finally:
+            view.close()
+            dev.close()
+        api("/api/v1/workers/t/ranks", "DELETE")
+    finally:
+        daemon.terminate()
+        daemon.wait(timeout=30)

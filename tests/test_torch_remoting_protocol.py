@@ -84,6 +84,31 @@ def test_frames_byte_equal_to_reference(enc, dtype, version):
     assert ("buffers_q8" in stats) == expect_q8
 
 
+_LAYOUT = [{"device": d, "slices": [[8 * d, 8 * d + 8], [0, 64]]} for d in range(4)]
+MESH_FRAMES = {
+    "COMPILE_OK": {"exe_id": "e", "nr_devices": 4, "arg_layouts": [None, _LAYOUT],
+                   "out_layouts": [_LAYOUT]},
+    "EXECUTE": {"exe_id": "e", "arg_refs": [None, None],
+                "arg_shards": [None, ["c-a1-0", None, "c-a1-2", None]]},
+    "PUT": {"buf_id": "c-w1-3", "device_id": 3, "ephemeral": True, "quiet": True},
+    "FETCH": {"buf_id": "c-w1-3", "device_id": 3},
+    "INFO_OK": {"n_devices": 4, "devices": [{"id": d, "coords": [d]} for d in range(4)],
+                "resident_bytes_per_device": {str(d): 0 for d in range(4)}},
+}
+
+
+@pytest.mark.parametrize("version", [3, 9])
+@pytest.mark.parametrize("kind", sorted(MESH_FRAMES))
+def test_mesh_fields_frame_byte_equal_to_reference(kind, version):
+    """The v3 mesh fields frame as the reference frames them."""
+    meta = dict(MESH_FRAMES[kind], seq=3)
+    a = np.arange(32, dtype=np.float32)
+    bufs = [a] if kind in ("PUT", "EXECUTE") else []
+    want = R.encode_message(kind, meta, bufs, version=version)
+    assert P.encode_message(kind, meta, [torch.from_numpy(b) for b in bufs],
+                            version=version) == want
+
+
 def _over_socketpair(frame: bytes, recv):
     """``recv`` of one frame sent from another thread (a frame larger
     than the socket buffer would block a same-thread send)."""

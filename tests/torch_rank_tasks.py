@@ -277,3 +277,62 @@ def die_on(rank):
     if dist.get_rank() == rank:
         os._exit(3)
     return dist.get_rank()
+
+
+def flash_on_dtensors(q_np, k_np, v_np, dim):
+    """q, k, v [B, H, T, D] sharded on ``dim`` (0 batch, 1 heads) over a
+    1-D mesh of the ranks, through the port's flash attention: the
+    output's placement, this rank's output shard and its shape, and the
+    error of a call whose q, k and v are not sharded alike."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from tensorfusion_tpu_torch.ops import flash_attention, flash_attention_fwd
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    mesh = init_device_mesh("cpu", (n,))
+    q, k, v = (DTensor.from_local(torch.from_numpy(x).chunk(n, dim)[r].contiguous(),
+                                  mesh, [Shard(dim)], run_check=False)
+               for x in (q_np, k_np, v_np))
+    out = flash_attention(q, k, v, causal=True)
+    flat = DTensor.from_local(torch.from_numpy(k_np[0]), mesh, [Replicate()],
+                              run_check=False)
+    try:
+        flash_attention_fwd(flat, flat, flat, 0.1, True)
+        mixed = ""
+    except RuntimeError as e:       # DTensor's dispatch wraps the rule's error
+        mixed = str(e)
+    return {"placements": str(out.placements), "local": out.to_local().numpy(),
+            "local_shape": list(out.to_local().shape), "mixed_error": mixed}
+
+
+#: what the node agent puts in a soft worker's env for the launch hook
+HOOK_ENV = ("LD_PRELOAD", "TPF_SHM_PATH", "TPF_LIMITER_LIB", "TPF_DEVICE_INDEX",
+            "TPF_PEAK_MFLOPS")
+
+
+def hooked_launches(n_launches):
+    """``n_launches`` kernels through the stand-in driver, reached as
+    CUDA's runtime reaches it (``cuGetProcAddress_v2``), under the launch
+    hook: this rank's pid, the hook's report and the hook's variables
+    this rank inherited."""
+    import ctypes as C
+    import os
+
+    from tensorfusion_tpu_torch.hypervisor import cuda_hook_binding
+
+    cuda = C.CDLL("libcuda.so.1")
+    gpa = cuda.cuGetProcAddress_v2
+    gpa.argtypes = [C.c_char_p, C.POINTER(C.c_void_p), C.c_int, C.c_uint64,
+                    C.POINTER(C.c_int)]
+    fn, status = C.c_void_p(), C.c_int()
+    if gpa(b"cuLaunchKernel", C.byref(fn), 12080, 0, C.byref(status)) != 0:
+        raise RuntimeError("cuGetProcAddress_v2(cuLaunchKernel) failed")
+    launch = C.CFUNCTYPE(C.c_int, *([C.c_void_p] + [C.c_uint] * 7 + [C.c_void_p] * 3))(
+        fn.value)
+    for _ in range(n_launches):
+        if launch(None, 1, 1, 1, 32, 1, 1, 0, None, None, None) != 0:
+            raise RuntimeError("cuLaunchKernel failed")
+    hook = cuda_hook_binding.loaded()
+    return {"pid": os.getpid(), "hook": hook.report() if hook is not None else None,
+            "env": {k: os.environ.get(k) for k in HOOK_ENV}}
