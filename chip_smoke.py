@@ -11,7 +11,7 @@ provider and its launch and memory hook from the checkout (failing if
 ptxas reports a spill, or if the hand-declared NVML or CUDA driver types
 disagree with the toolkit's nvml.h or cuda.h), holds every kernel against
 its plain PyTorch version on the card and times it at the main path's
-shape and at a long one, then drives the port's eleven paths at Llama-3-8B
+shape and at a long one, then drives the port's twelve paths at Llama-3-8B
 width (random weights from fixed seeds), each with the kernel launch
 counts set to 0 just before it and read just after (a tenant's, in its
 own processes, count from 0 at their start):
@@ -60,6 +60,17 @@ own processes, count from 0 at their start):
   multi-rank tenant (``chip_smoke.py --mesh-tenant DIR``) for 3 steps,
   its charges against its ranks' time outside gloo, and a rank waiting
   in a host-staged all-reduce.  Its launches are the tenants' ranks';
+- the control plane (``control_plane``): the port's state store
+  (``python -m tensorfusion_tpu_torch.statestore``, persisted, with a
+  token) and the daemon joined to it with ``--operator-url``; the Node,
+  TPUNode and the card's TPUChip read back over a ``RemoteStore``; a pod
+  bound to the node at a 25% contract (247.25 TFLOPs), which the daemon
+  turns into a worker whose segment holds 2500 bp; the unmodified 32-layer
+  tenant (``chip_smoke.py --tenant-raw DIR``) under the worker's env for
+  about 20 s, its segment against its hook report; the daemon's metrics
+  lines in the store; the store killed and restarted from its journal,
+  a second pod reaching the agent after it; both pods deleted and their
+  workers and segments gone.  Its launches are the tenant's;
 
 - serving: greedy ``generate`` requests, 32 layers, through the metered
   client;
@@ -123,8 +134,8 @@ train-step bench (``tensorfusion_tpu_torch.bench_train``).  Each phase
 prints one JSON line; any failure raises and exits non-zero.  The line
 before the last two is the kernel table (its ``launches_by_path`` has
 ``serve``, ``engine``, ``train``, ``remote``, ``remote_serve``,
-``federation``, ``migrate``, ``mesh``, ``node``, ``intercept`` and
-``shard``), each phase is preceded by a ``memory`` line (what this
+``federation``, ``migrate``, ``mesh``, ``node``, ``intercept``,
+``shard`` and ``control_plane``), each phase is preceded by a ``memory`` line (what this
 process holds, before and after collecting garbage), the
 line before the last is nvidia-smi's name and power limit, and the last
 line is
@@ -2887,7 +2898,7 @@ def _conformance(provider_lib):
     return r.stdout.strip()
 
 
-def _start_daemon(provider_lib, limiter_lib, work):
+def _start_daemon(provider_lib, limiter_lib, work, extra=()):
     port_file = work / "port"
     log = open(work / "daemon.log", "w")
     proc = subprocess.Popen(
@@ -2895,7 +2906,7 @@ def _start_daemon(provider_lib, limiter_lib, work):
          "--provider", str(provider_lib), "--limiter", str(limiter_lib),
          "--shm-base", str(work / "shm"), "--state-dir", str(work / "state"),
          "--snapshot-dir", str(work / "snap"), "--port", "0",
-         "--port-file", str(port_file), "--api-token", NODE_TOKEN],
+         "--port-file", str(port_file), "--api-token", NODE_TOKEN, *extra],
         cwd=str(REPO), stdout=log, stderr=subprocess.STDOUT)
     log.close()
     deadline = time.monotonic() + 60
@@ -3847,6 +3858,10 @@ def mesh_tenant_main(out: Path) -> int:
         time.sleep(3600)
 
 
+UNION_FIELDS = ("window_us", "device_us", "union_on", "union_windows", "unanchored", "anchors",
+                "anchor_misses", "anchor_err_us_max")
+
+
 def _mesh_tenant(url, chip, work, peak_mflops):
     """Part d: the mesh tenant under the daemon, its record and its
     segment once it has stopped."""
@@ -3892,10 +3907,17 @@ def _mesh_tenant(url, chip, work, peak_mflops):
                           "charged_device_s_per_rank": [
                               r["collective_charged_mflops"] / peak_mflops for r in ranks]},
            "launches_per_rank": [r["launches"] for r in ranks],
+           # the ranks charge the union of their windows (csrc/cuda_hook.c,
+           # "Several processes of one worker"): window_us is what their
+           # windows summed, device_us what they were charged
+           "union_per_rank": [{k: r["hook"][k] for k in UNION_FIELDS} for r in ranks],
+           "charged_over_windows": sum(r["hook"]["device_us"] for r in ranks) / max(
+               sum(r["hook"]["window_us"] for r in ranks), 1),
            "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
            "pids_registered": seg["pids"], **_segment_vs_hooks(seg, reports)}
     ok = (row["equal"] and sorted(seg["pids"]) == sorted(
         [rec["parent"]["pid"]] + [r["pid"] for r in ranks])
+        and all(r["hook"]["union_on"] == 1 for r in ranks)
         and all(n > 0 for r in ranks for n in r["launches"].values())
         and all(math.isfinite(l) for l in row["losses"])
         and all(r["losses"] == row["losses"] for r in ranks))
@@ -3977,6 +3999,232 @@ def phase_shard(torch, llama, remoting, hardware, hv_build, limiter_lib, name, s
     return launches
 
 
+# -- the control plane: the state store and the node agent joined to it -------
+
+CP_TOKEN = "chip-smoke-store"              # the state store's admin token
+CP_NODE = "chip-smoke-node"                # the node agent's name in the store
+CP_POOL = "pool-h100"
+CP_TFLOPS = "247.25"                       # the pod's contract: 25% of 989 TFLOP/s
+CP_WINDOW_S = 20.0                         # the tenant's calls after its first
+CP_TIMEOUT_S = 60.0                        # an object or a worker to appear
+
+
+def _cp_wait(fn, what, timeout=CP_TIMEOUT_S, procs=()):
+    """fn()'s first true value, polled; raises at the timeout or when one
+    of ``procs`` ((name, Popen) pairs) has exited."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = fn()
+        if got:
+            return got
+        for who, proc in procs:
+            if proc.poll() is not None:
+                raise RuntimeError(f"{who} exited ({proc.returncode}) before {what}")
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"timed out waiting for {what}")
+        time.sleep(0.1)
+
+
+def _start_statestore(work, port=0):
+    """``python -m tensorfusion_tpu_torch.statestore`` persisted under
+    ``work/persist``, on ``port`` (0: any); the process and its port."""
+    port_file = work / "statestore.port"
+    port_file.unlink(missing_ok=True)
+    log = open(work / "statestore.log", "a")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tensorfusion_tpu_torch.statestore", "--port", str(port),
+         "--port-file", str(port_file), "--persist-dir", str(work / "persist"),
+         "--token", CP_TOKEN], cwd=str(REPO), stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    _cp_wait(lambda: port_file.exists() and port_file.read_text().strip(),
+             "the state store's port", procs=[("the state store", proc)])
+    return proc, int(port_file.read_text())
+
+
+def _cp_pod(api_types, constants, name, chip, tflops, hbm):
+    """A pod bound to CP_NODE with the annotations the webhook and the
+    scheduler would write: the chip, a TFLOPs contract, HBM, soft
+    isolation, QoS low."""
+    pod = api_types.Pod.new(name, namespace="default")
+    pod.spec.node_name = CP_NODE
+    pod.metadata.annotations.update({
+        constants.ANN_CHIP_IDS: chip, constants.ANN_TFLOPS_REQUEST: tflops,
+        constants.ANN_HBM_REQUEST: str(hbm), constants.ANN_ISOLATION: constants.ISOLATION_SOFT,
+        constants.ANN_QOS: constants.QOS_LOW})
+    return pod
+
+
+def _cp_worker(url, key):
+    """The daemon's worker ``key`` once its segment exists (its path is
+    the last variable of its env the daemon sets), else None."""
+    import os
+
+    for w in _api(url, "/api/v1/workers"):
+        shm = w["status"]["env"].get("TPF_SHM_PATH", "")
+        if f"{w['spec']['namespace']}/{w['spec']['name']}" == key and os.path.exists(shm):
+            return w
+    return None
+
+
+def _cp_tenant(env, out, view):
+    """The unmodified 32-layer tenant under a worker's env for CP_WINDOW_S
+    after its first call; its records and the segment once it stopped."""
+    import os
+
+    proc = subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--tenant-raw",
+                             str(out)], env={**os.environ, **env}, cwd=str(REPO),
+                            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    try:
+        _cp_wait(lambda: any("t1" in l for l in _tenant_lines(out)), "the tenant's first call",
+                 timeout=NODE_START_TIMEOUT_S, procs=[("the tenant", proc)])
+        time.sleep(CP_WINDOW_S)
+        (out / "stop").touch()
+        _cp_wait(lambda: any("stopped" in l for l in _tenant_lines(out)), "the tenant's stop",
+                 timeout=NODE_STOP_TIMEOUT_S, procs=[("the tenant", proc)])
+        seg = _read_segment(view)
+    except RuntimeError as e:
+        raise RuntimeError(f"{e}:\n{_tail(out / 'tenant.log')}") from None
+    finally:
+        proc.kill()
+        proc.wait()
+    lines = _tenant_lines(out)
+    return ([l for l in lines if "t1" in l], next(l for l in lines if "stopped" in l),
+            next(l["check"] for l in lines if "check" in l), seg, proc.pid)
+
+
+def phase_control_plane(torch, hardware, hv_build, limiter_lib, name, smi):
+    """The control plane, part 1, on the card: the port's state store, the
+    daemon joined to it with ``--operator-url`` over the NVML provider, the
+    card published as a TPUChip, a pod bound to the node at a 25% contract
+    turned into a worker, the unmodified Llama-3-8B tenant under that
+    worker's env (the launch hook preloaded), metrics lines in the store, a
+    restart of the store from its journal, and both pods' deletion.
+    Returns the tenant's kernel launches."""
+    from tensorfusion_tpu_torch import constants
+    from tensorfusion_tpu_torch.api import types as api_types
+    from tensorfusion_tpu_torch.hypervisor import ShmView, list_worker_segments
+    from tensorfusion_tpu_torch.remote_store import RemoteStore
+
+    t_phase = time.perf_counter()
+    work = WORK / "control_plane"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    peak = hardware.peak_rates(name)["bf16"]
+    checks, row = {}, {}
+    store_proc, port = _start_statestore(work)
+    store_url = f"http://127.0.0.1:{port}"
+    rs = RemoteStore(store_url, token=CP_TOKEN, timeout_s=30)
+    daemon = None
+    try:
+        _cp_wait(rs.ping, "the state store's healthz", procs=[("the state store", store_proc)])
+        t0 = time.monotonic()
+        daemon, url = _start_daemon(hv_build.provider_path(), limiter_lib, work, extra=(
+            "--operator-url", store_url, "--node-name", CP_NODE, "--pool", CP_POOL,
+            "--store-token", CP_TOKEN, "--metrics-interval-s", "1"))
+        procs = [("the daemon", daemon), ("the state store", store_proc)]
+        chips = _cp_wait(lambda: rs.list(api_types.TPUChip), "the card's TPUChip", procs=procs)
+        row["chip_published_s"] = time.monotonic() - t0
+        chip, dev = chips[0], _api(url, "/api/v1/devices")[0]["info"]
+        st = chip.status
+        node = rs.get(api_types.Node, CP_NODE)
+        tnode = rs.get(api_types.TPUNode, CP_NODE)
+        total = torch.cuda.get_device_properties(0).total_memory
+        row["chip"] = {"name": chip.metadata.name, "generation": st.generation,
+                       "vendor": st.vendor, "used_by": st.used_by, "phase": st.phase,
+                       "pool": st.pool, "tflops": st.capacity.tflops,
+                       "duty_percent": st.capacity.duty_percent,
+                       "hbm_bytes": st.capacity.hbm_bytes, "torch_total_memory": total,
+                       "mesh": [st.mesh.x, st.mesh.y, st.mesh.z],
+                       "links": [[l.peer_index, l.kind, l.gbps] for l in st.ici_links]}
+        row["node"] = {"phase": node.status.phase, "pool": tnode.spec.pool,
+                       "tpunode_phase": tnode.status.phase,
+                       "hypervisor_url": tnode.status.hypervisor_url}
+        checks["inventory"] = (
+            len(chips) == 1 and chip.metadata.name == dev["chip_id"]
+            and (st.generation, st.vendor, st.used_by, st.phase, st.pool) == (
+                "h100-sxm", "nvidia", constants.CHIP_USED_BY_TPU_FUSION,
+                constants.PHASE_RUNNING, CP_POOL)
+            and (st.capacity.tflops, st.capacity.duty_percent) == (peak / 1e12, 100.0)
+            and st.capacity.hbm_bytes == dev["hbm_bytes"] and abs(dev["hbm_bytes"] / total - 1)
+            < 0.05 and [st.mesh.x, st.mesh.y, st.mesh.z] == list(dev["mesh"])
+            and node.status.phase == constants.PHASE_RUNNING and tnode.spec.pool == CP_POOL
+            and tnode.status.hypervisor_url == url and tnode.status.hypervisor_ready)
+
+        t_bound = time.monotonic()
+        rs.create(_cp_pod(api_types, constants, "tenant", chip.metadata.name, CP_TFLOPS,
+                          NODE_HBM_BYTES))
+        worker = _cp_wait(lambda: _cp_worker(url, "default/tenant"), "the pod's worker",
+                          procs=procs)
+        row["pod_to_segment_ms"] = (time.monotonic() - t_bound) * 1e3
+        env = worker["status"]["env"]
+        view = ShmView(env["TPF_SHM_PATH"])
+        try:
+            quota = view.read().devices[0]
+            row["segment"] = {"chip_id": quota.chip_id, "duty_limit_bp": quota.duty_limit_bp,
+                              "hbm_limit_bytes": quota.hbm_limit_bytes}
+            checks["contract"] = (quota.chip_id, quota.duty_limit_bp, quota.hbm_limit_bytes) \
+                == (chip.metadata.name, 2500, NODE_HBM_BYTES)
+            calls, stopped, check, seg, pid = _cp_tenant(env, work / "tenant", view)
+        finally:
+            view.close()
+        wall = calls[-1]["t1"] - calls[0]["t1"]
+        device_s = (calls[-1]["hook"]["device_us"] - calls[0]["hook"]["device_us"]) / 1e6
+        flash = [l["flash"] for l in calls]
+        row["tenant"] = {
+            "calls": len(calls), "shape": list(NODE_SHAPE), "n_layers": check["config"]["n_layers"],
+            "tokens_per_s": (len(calls) - 1) * NODE_SHAPE[0] * NODE_SHAPE[1] / wall,
+            "device_share": device_s / wall, "contract_share": float(CP_TFLOPS) * 1e12 / peak,
+            "call_ms_median": sorted((l["t1"] - l["t0"]) * 1e3 for l in calls)[len(calls) // 2],
+            "hook": stopped["hook"], "segment": {k: seg[k] for k in (
+                "launches", "charged", "blocked", "hbm_used", "pids", "refill", "capacity")}}
+        checks["tenant_unmodified"] = check["client_runtime_imported"] is False
+        checks["segment_is_the_hook"] = (
+            seg["launches"] == stopped["hook"]["charges"]
+            and seg["charged"] == stopped["hook"]["charged_mflops"] > 0 and pid in seg["pids"])
+        checks["flash_every_call"] = all(
+            b - a == check["config"]["n_layers"] for a, b in zip([0] + flash, flash))
+
+        _, lines, _, _ = rs.drain_metrics()
+        row["metrics_lines"] = len(lines)
+        checks["metrics"] = any(CP_NODE in l for l in lines)
+
+        t_kill = time.monotonic()
+        store_proc.kill()
+        store_proc.wait()
+        store_proc, _ = _start_statestore(work, port)
+        procs = [("the daemon", daemon), ("the state store", store_proc)]
+        _cp_wait(rs.ping, "the restarted state store", procs=procs)
+        row["store_restart_s"] = time.monotonic() - t_kill
+        survived = {kind.KIND: rs.try_get(kind, key, ns) is not None for kind, key, ns in (
+            (api_types.Node, CP_NODE, ""), (api_types.TPUNode, CP_NODE, ""),
+            (api_types.TPUChip, chip.metadata.name, ""), (api_types.Pod, "tenant", "default"))}
+        rs.create(_cp_pod(api_types, constants, "second", chip.metadata.name, "98.9", 1 << 30))
+        _cp_wait(lambda: _cp_worker(url, "default/second"), "the second pod's worker",
+                 procs=procs)
+        row["restart_recover_s"] = time.monotonic() - t_kill
+        row["survived_restart"] = survived
+        checks["restart"] = all(survived.values())
+
+        for pod in ("tenant", "second"):
+            rs.delete(api_types.Pod, pod, "default")
+        _cp_wait(lambda: not _api(url, "/api/v1/workers"), "the workers' removal", procs=procs)
+        left = list_worker_segments(str(work / "shm"))
+        checks["reclaimed"] = (not left and rs.get(api_types.TPUChip, chip.metadata.name)
+                               .status.phase == constants.PHASE_RUNNING)
+    finally:
+        rs.close()
+        if daemon is not None:
+            _stop(daemon)
+        _stop(store_proc)
+    checks["stopped"] = daemon.poll() is not None and store_proc.poll() is not None
+    emit("control_plane", **row, checks=checks, nvidia_smi=smi,
+         seconds=time.perf_counter() - t_phase)
+    if not all(checks.values()):
+        raise RuntimeError(f"control_plane phase checks failed: {checks}")
+    return {"flash_attn_fwd": stopped["flash"], "flash_attn_bwd_dq": 0,
+            "flash_attn_bwd_dkv": 0}
+
+
 def _memory(torch, phase, t0):
     """The card memory this process holds as ``phase`` starts: what the
     earlier phases left allocated, then what is left once reference cycles
@@ -4041,6 +4289,8 @@ def main() -> int:
     _memory(torch, "shard", t0)
     shard_launches = phase_shard(torch, llama, remoting, hardware, hv_build, limiter_lib,
                                  name, smi)
+    _memory(torch, "control_plane", t0)
+    cp_launches = phase_control_plane(torch, hardware, hv_build, limiter_lib, name, smi)
 
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attn_impl="flash")
     _memory(torch, "serve", t0)
@@ -4091,7 +4341,7 @@ def main() -> int:
                 + remote_serve_launches[k.name] + fed_launches[k.name]
                 + mig_launches[k.name] + mesh_launches[k.name]
                 + node_launches[k.name] + intercept_launches[k.name]
-                + shard_launches[k.name],
+                + shard_launches[k.name] + cp_launches[k.name],
                 "launches_by_path": {"serve": serve_launches[k.name],
                                      "train": train_launches[k.name],
                                      "engine": engine_launches[k.name],
@@ -4102,7 +4352,8 @@ def main() -> int:
                                      "mesh": mesh_launches[k.name],
                                      "node": node_launches[k.name],
                                      "intercept": intercept_launches[k.name],
-                                     "shard": shard_launches[k.name]},
+                                     "shard": shard_launches[k.name],
+                                     "control_plane": cp_launches[k.name]},
                 **{key: rows[k.name][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "plain", "library", "pair_ms")

@@ -1,8 +1,27 @@
 """Environment names the port's client, remote worker, tracer, profiler
 and node agent read, the QoS ladder its serving engine and dispatcher
-schedule by, and the node agent's isolation modes and worker phases (the
-same contract as the JAX package's; see tensorfusion_tpu/constants.py).
-The one name that differs is the visible-device variable: CUDA's."""
+schedule by, the node agent's isolation modes and worker phases, and the
+pod annotations and pool defaults its control plane reads (the same
+contract as the JAX package's; see tensorfusion_tpu/constants.py: these
+strings cross the wire between the two).  The one name that differs is
+the visible-device variable: CUDA's."""
+
+import os
+
+#: the annotation domain, configurable as the reference's is
+DOMAIN_PREFIX = os.environ.get("TPF_DOMAIN_PREFIX", "tpu-fusion")
+DOMAIN_SUFFIX = os.environ.get("TPF_DOMAIN_SUFFIX", "ai")
+DOMAIN = f"{DOMAIN_PREFIX}.{DOMAIN_SUFFIX}"
+
+#: pod annotations the node agent turns into a worker (the webhook and the
+#: scheduler write them)
+ANN_TFLOPS_REQUEST = f"{DOMAIN}/tflops-request"
+ANN_HBM_REQUEST = f"{DOMAIN}/hbm-request"
+ANN_DUTY_REQUEST = f"{DOMAIN}/duty-percent-request"   # duty share 0-100
+ANN_QOS = f"{DOMAIN}/qos"
+ANN_ISOLATION = f"{DOMAIN}/isolation"
+ANN_CHIP_IDS = f"{DOMAIN}/chip-ids"              # comma-joined allocated ids
+ANN_PARTITION_NAME = f"{DOMAIN}/partition"       # template id, partitioned mode
 
 ENV_SHM_PATH = "TPF_SHM_PATH"                  # worker segment path
 ENV_HYPERVISOR_URL = "TPF_HYPERVISOR_URL"      # node-local bootstrap endpoint
@@ -20,6 +39,8 @@ ENV_PROF_BUNDLE_DIR = "TPF_PROF_BUNDLE_DIR"    # auto postmortem bundle dir
 ENV_FED_QUANT = "TPF_FED_QUANT"                # federated collective q8: 1/0
 ENV_OPERATOR_URL = "TPF_OPERATOR_URL"          # control-plane client API
 ENV_NODE_NAME = "TPF_NODE_NAME"
+ENV_POOL_NAME = "TPF_POOL"                     # pool the node agent joins
+ENV_STORE_TOKEN = "TPF_STORE_TOKEN"            # store-gateway shared token
 ENV_PROVIDER_LIB = "TPF_PROVIDER_LIB"
 ENV_SHM_BASE = "TPF_SHM_BASE"
 #: the bound host indices; CUDA orders devices fastest first unless
@@ -64,6 +85,16 @@ PHASE_FAILED = "Failed"
 PHASE_UNKNOWN = "Unknown"
 PHASE_DESTROYING = "Destroying"
 PHASE_MIGRATING = "Migrating"
+
+CHIP_USED_BY_TPU_FUSION = "tpu-fusion"
+CHIP_USED_BY_EXTERNAL_PLUGIN = "external-device-plugin"
+
+#: pool defaults (the TPUPool spec's)
+DEFAULT_TFLOPS_OVERSELL_PERCENT = 500     # 5x device-time oversubscription
+#: HBM expansion is opt-in: admitting placements beyond physical HBM is
+#: honest only where the client keeps the spill contract
+DEFAULT_HBM_EXPAND_HOST_MEM_PERCENT = 0
+DEFAULT_HBM_EXPAND_HOST_DISK_PERCENT = 0
 
 #: remote dispatcher queue depths: deep enough for pipelining clients
 #: (depths of 8-32), shallow enough that queue wait stays bounded

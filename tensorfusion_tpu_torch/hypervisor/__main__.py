@@ -1,18 +1,26 @@
 """Hypervisor daemon entry point: the port's copy of
 tensorfusion_tpu/hypervisor/__main__.py.  It loads the provider, starts
-the device and worker controllers, the HTTP server and the single-node
-backend (the file-state worker spawner), and serves until killed.
+the device and worker controllers, the HTTP server and a backend, and
+serves until killed.  Two backends, as in the reference:
+
+- default: the file-state ``SingleNodeBackend`` (the worker spawner);
+- with ``--operator-url``: the ``ControlPlaneBackend`` over a
+  :class:`~tensorfusion_tpu_torch.remote_store.RemoteStore`: the node
+  agent joins a state store (``python -m tensorfusion_tpu_torch.
+  statestore``, or the reference's) over HTTP, publishes its node and
+  chips there, turns pods bound to this node into workers, and pushes
+  its metrics lines into the store.
 
     python -m tensorfusion_tpu_torch.hypervisor \\
         [--provider build/hypervisor/libtpf_provider_nvml-<hash>.so] \\
         --limiter native/build/libtpf_limiter.so \\
-        --shm-base /tmp/tpf-shm --state-dir /tmp/tpf-state --port 8000
+        --shm-base /tmp/tpf-shm --state-dir /tmp/tpf-state --port 8000 \\
+        [--operator-url http://store:2379 --node-name gpu-host-0 \\
+         --pool pool-h100 [--store-token SECRET] [--advertise-url URL]]
 
 Without ``--provider`` (or ``TPF_PROVIDER_LIB``) it builds and loads the
 NVML provider (``hypervisor/csrc/provider_nvml.c``); any other provider
 library of the same ABI, such as the reference's mock, loads the same way.
-The reference's control-plane backend (``--operator-url``) is not ported
-yet, and asking for it exits with that message.
 """
 
 from __future__ import annotations
@@ -55,10 +63,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tick-ms", type=int, default=100)
     ap.add_argument("--operator-url",
                     default=os.environ.get(constants.ENV_OPERATOR_URL, ""),
-                    help="join a remote operator (not ported yet: exits)")
+                    help="join a remote operator's store gateway instead "
+                         "of running standalone")
     ap.add_argument("--node-name",
                     default=os.environ.get(constants.ENV_NODE_NAME, "")
                     or os.uname().nodename)
+    ap.add_argument("--pool",
+                    default=os.environ.get(constants.ENV_POOL_NAME, ""))
+    ap.add_argument("--store-token",
+                    default=os.environ.get(constants.ENV_STORE_TOKEN, ""))
     ap.add_argument("--api-token",
                     default=os.environ.get(constants.ENV_HYPERVISOR_TOKEN, ""),
                     help="require this X-TPF-Token on the hypervisor's "
@@ -71,8 +84,14 @@ def build_parser() -> argparse.ArgumentParser:
                     default=os.environ.get("TPF_TLS_KEY", ""))
     ap.add_argument("--port-file", default="",
                     help="write the bound API port here (for --port 0)")
+    ap.add_argument("--advertise-url", default="",
+                    help="externally reachable URL registered on the "
+                         "TPUNode (default: the local bind URL — set "
+                         "this in cross-host/container deployments)")
     ap.add_argument("--metrics-path", default="",
-                    help="append influx-line metrics to this file")
+                    help="append influx-line metrics to this file "
+                         "(networked deployments additionally push them "
+                         "to the store gateway)")
     ap.add_argument("--metrics-interval-s", type=float, default=5.0)
     ap.add_argument("-v", "--verbose", action="store_true")
     return ap
@@ -83,9 +102,6 @@ class HypervisorDaemon:
     the wiring is testable in-process."""
 
     def __init__(self, args):
-        if args.operator_url:
-            raise SystemExit("the control-plane backend is not ported yet "
-                             f"(--operator-url {args.operator_url})")
         self.args = args
         self.log = logging.getLogger("tpf.hypervisor")
         os.makedirs(args.snapshot_dir, exist_ok=True)
@@ -104,19 +120,34 @@ class HypervisorDaemon:
                                        token=args.api_token,
                                        tls_cert=args.tls_cert,
                                        tls_key=args.tls_key)
-        self.backend = SingleNodeBackend(args.state_dir)
+        self.store = None
+        push = None
+        if args.operator_url:
+            from ..remote_store import RemoteStore
+            from .control_plane import ControlPlaneBackend
+
+            self.store = RemoteStore(args.operator_url, token=args.store_token)
+            self.backend = ControlPlaneBackend(
+                self.store, self.devices, node_name=args.node_name,
+                pool=args.pool, known_pids=self.workers.all_pids)
+            # metrics go into the store over the same connection, where
+            # the operator drains them
+            push = self.store.push_metrics
+        else:
+            self.backend = SingleNodeBackend(args.state_dir)
         self.metrics = None
-        if args.metrics_path:
+        if args.metrics_path or push is not None:
             from .metrics import HypervisorMetricsRecorder
 
             self.metrics = HypervisorMetricsRecorder(
                 self.devices, self.workers, path=args.metrics_path,
                 interval_s=args.metrics_interval_s,
-                node_name=args.node_name)
+                node_name=args.node_name, push=push)
 
     def _on_added(self, spec) -> None:
         tracked = self.workers.add_worker(spec)
-        self.backend.set_worker_env(spec.key, tracked.status.env)
+        if self.store is None:
+            self.backend.set_worker_env(spec.key, tracked.status.env)
 
     def start(self) -> None:
         args = self.args
@@ -125,13 +156,20 @@ class HypervisorDaemon:
         if args.port_file:
             with open(args.port_file, "w") as f:
                 f.write(str(self.server.port))
+        if self.store is not None:
+            from .control_plane import provider_vendor
+
+            self.backend.hypervisor_url = args.advertise_url or self.server.url
+            self.backend.vendor = provider_vendor(self.devices)
         self.server.backend = self.backend
         self.backend.start(self._on_added, self.workers.remove_worker)
         self.workers.start()
         if self.metrics is not None:
             self.metrics.start()
-        self.log.info("hypervisor serving on %s (%d chips)", self.server.url,
-                      len(self.devices.devices()))
+        self.log.info(
+            "hypervisor serving on %s (%d chips)%s", self.server.url,
+            len(self.devices.devices()),
+            f", joined operator {args.operator_url}" if self.store else "")
 
     def stop(self) -> None:
         if self.metrics is not None:
@@ -139,6 +177,8 @@ class HypervisorDaemon:
         self.server.stop()
         self.workers.stop()
         self.backend.stop()
+        if self.store is not None:
+            self.store.close()
         self.devices.stop()
 
 

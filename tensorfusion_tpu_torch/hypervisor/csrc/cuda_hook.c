@@ -51,6 +51,26 @@
  * meanwhile, so a tenant that shares the card by time slicing pays for the
  * slices it waited through.
  *
+ * Several processes of one worker.  The ranks of one tenant (processes
+ * that share TPF_SHM_PATH and TPF_DEVICE_INDEX) time-slice the card among
+ * themselves, and each rank's windows span its siblings' slices; summed,
+ * the tenant would pay for every slice once per rank.  So the hook keeps a
+ * side file beside the segment (".<pod>.hook", hidden from the node
+ * agent's segment listing) in which every process that reads a window
+ * registers its pid and device index.  While two or more live processes
+ * are registered for its device, a process places each window on the
+ * host's CLOCK_MONOTONIC and charges only the part of it that no window of
+ * the worker charged before: the worker pays for the union of its windows,
+ * not their sum.  A window's host time comes from an *anchor*: an event
+ * recorded into an idle stream between two host clock reads t0 and t1 and
+ * waited for (at most ANCHOR_SPIN_US), placed at (t0 + t1) / 2, so it is
+ * off by at most (t1 - t0) / 2 (the report's anchor_err_us_max); a window
+ * starts at the anchor's host time plus cuEventElapsedTime(anchor, start).
+ * Anchors are renewed every ANCHOR_EVERY_US, which bounds the drift
+ * between the card's clock and the host's.  Windows opened before a
+ * process has an anchor are charged whole (the report's unanchored).  A
+ * process alone on its worker's device charges exactly its windows' sum.
+ *
  * Resolution.  CUDA 12's runtime dlopens libcuda.so.1, dlsyms
  * cuGetProcAddress(_v2) on that handle and takes every driver entry from
  * it, so a preloaded cuLaunchKernel alone sees nothing.  The hook therefore
@@ -72,12 +92,19 @@
 
 #define _GNU_SOURCE
 #include <dlfcn.h>
+#include <errno.h>
+#include <fcntl.h>
 #include <pthread.h>
+#include <signal.h>
 #include <stdint.h>
 #include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
+#include <sys/file.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
 #include <time.h>
+#include <unistd.h>
 
 #include "cuda_types.h"
 
@@ -267,6 +294,7 @@ static entry_t g_entries[N_ENTRIES] = {
 
 typedef struct window {
   cu_event_t start, end;
+  int anchor;                /* the anchor its start is placed by; -1: none */
   struct window* next;
 } window_t;
 
@@ -300,6 +328,43 @@ typedef struct {
   cu_capture_mode_t mode;
   pthread_t thread;          /* the thread that began it */
 } capture_t;
+
+/* The side file of a worker's processes (see "Several processes of one
+ * worker" above): who charges which device, and for each device the
+ * disjoint spans of host time already charged, in order.  Guarded by
+ * flock; all zero is an empty file. */
+#define UNION_PROCS 64
+#define UNION_DEVICES 8
+#define UNION_SPANS 1024
+#define UNION_CHECK_US 200000      /* how often the live processes are counted */
+#define N_ANCHORS 4
+#define ANCHOR_EVERY_US 1000000    /* an anchor's renewal */
+#define ANCHOR_RETRY_US 10000      /* ... and its next try after a miss */
+#define ANCHOR_SPIN_US 2000        /* the longest wait for an anchor event */
+
+typedef struct {
+  uint64_t a, b;             /* [a, b) in CLOCK_MONOTONIC ns */
+} span_t;
+
+typedef struct {
+  struct {
+    int32_t pid;
+    uint32_t device;
+  } procs[UNION_PROCS];
+  struct {
+    uint32_t n;
+    uint32_t pad;
+    span_t span[UNION_SPANS];
+  } dev[UNION_DEVICES];
+} union_file_t;
+
+typedef struct {
+  cu_event_t event;
+  uint64_t host_ns;          /* the host time of its completion, midpoint */
+  uint64_t err_ns;           /* half the interval it was taken in */
+  unsigned refs;             /* windows placed by it, or 1 while being taken */
+  int valid;
+} anchor_t;
 
 typedef struct {
   uint64_t key;
@@ -344,6 +409,16 @@ static struct {
   capture_t capturing[MAX_CAPTURES];
   int n_capturing;
 
+  /* the union of a worker's windows (all under mu) */
+  char union_path[4096];     /* the side file; empty: none */
+  int union_fd;              /* -1 until this process registers */
+  union_file_t* uf;
+  int union_on;              /* >= 2 live processes charge this device */
+  uint64_t union_checked_ns;
+  anchor_t anchors[N_ANCHORS];
+  int cur_anchor;            /* -1: none yet */
+  uint64_t anchor_due_ns;    /* the next anchor may be taken from then on */
+
   /* stats (tpf_cuda_hook_stats / tpf_cuda_hook_report) */
   uint64_t launches;         /* launches metered (kernels and graphs) */
   uint64_t graph_launches;
@@ -362,10 +437,18 @@ static struct {
   uint64_t limiter_errors;
   uint64_t wrapped_by_gpa;   /* entries handed out through cuGetProcAddress */
   uint64_t wrapped_by_dlsym; /* ... through dlsym */
+  uint64_t window_ns;        /* device time of the windows read, summed */
+  uint64_t union_windows;    /* windows charged as part of the worker's union */
+  uint64_t unanchored;       /* windows read while in union mode, charged whole */
+  uint64_t anchors_taken;
+  uint64_t anchor_misses;    /* anchor events not complete within the spin */
+  uint64_t anchor_err_max_ns;
 } g = {
     .attach_once = PTHREAD_ONCE_INIT,
     .mu = PTHREAD_MUTEX_INITIALIZER,
     .peak_mflops = 1e6,
+    .union_fd = -1,
+    .cur_anchor = -1,
 };
 
 static void logmsg(const char* msg) {
@@ -581,6 +664,12 @@ static void attach_limiter(void) {
     fprintf(stderr, "[tpf_cuda_hook] libcuda.so.1 lacks the event calls; unmetered\n");
     return;
   }
+  const char* slash = strrchr(shm_path, '/');
+  size_t dir = slash ? (size_t)(slash - shm_path) + 1 : 0;
+  if (g.device_index < UNION_DEVICES &&
+      snprintf(g.union_path, sizeof(g.union_path), "%.*s.%s.hook", (int)dir, shm_path,
+               shm_path + dir) >= (int)sizeof(g.union_path))
+    g.union_path[0] = '\0';
   g.metered = 1;
   logmsg("metering active");
 }
@@ -668,6 +757,7 @@ static window_t* new_window_locked(void) {
   }
   w = calloc(1, sizeof(*w));
   if (!w) return NULL;
+  w->anchor = -1;
   if (g.ev_create(&w->start, CU__EVENT_DEFAULT) != CU__SUCCESS) {
     free(w);
     return NULL;
@@ -681,6 +771,8 @@ static window_t* new_window_locked(void) {
 }
 
 static void drop_window_locked(window_t* w, int broken) {
+  if (w->anchor >= 0) g.anchors[w->anchor].refs--;
+  w->anchor = -1;
   if (broken) {
     g.ev_destroy(w->start);
     g.ev_destroy(w->end);
@@ -691,10 +783,183 @@ static void drop_window_locked(window_t* w, int broken) {
   g.free_windows = w;
 }
 
+/* ------------------------------------------------------------------ */
+/* the union of a worker's windows                                     */
+/* ------------------------------------------------------------------ */
+
+static int pid_alive(int32_t pid) {
+  return pid > 0 && (kill(pid, 0) == 0 || errno == EPERM);
+}
+
+/* Open the side file and register this process for its device, in its own
+ * slot or one of a process gone.  A failure leaves the process charging
+ * its windows' sum. */
+static void union_register_locked(void) {
+  if (g.uf || !g.union_path[0]) return;
+  int fd = open(g.union_path, O_RDWR | O_CREAT | O_CLOEXEC, 0600);
+  union_file_t* uf = MAP_FAILED;
+  struct stat sb;
+  if (fd >= 0 && flock(fd, LOCK_EX) == 0) {
+    if (fstat(fd, &sb) == 0 && (sb.st_size >= (off_t)sizeof(union_file_t) ||
+                                ftruncate(fd, sizeof(union_file_t)) == 0))
+      uf = mmap(NULL, sizeof(union_file_t), PROT_READ | PROT_WRITE, MAP_SHARED, fd, 0);
+    if (uf != MAP_FAILED) {
+      int32_t self = (int32_t)getpid();
+      int slot = -1;
+      for (int i = 0; i < UNION_PROCS; ++i) {
+        if (uf->procs[i].pid == self) {
+          slot = i;
+          break;
+        }
+        if (slot < 0 && !pid_alive(uf->procs[i].pid)) slot = i;
+      }
+      if (slot >= 0) {
+        uf->procs[slot].device = g.device_index;
+        __atomic_store_n(&uf->procs[slot].pid, self, __ATOMIC_RELEASE);
+      }
+    }
+    flock(fd, LOCK_UN);
+  }
+  if (uf == MAP_FAILED) {
+    if (fd >= 0) close(fd);
+    g.union_path[0] = '\0';
+    return;
+  }
+  g.union_fd = fd;
+  g.uf = uf;
+}
+
+/* Union mode: another live process of this worker charges this device. */
+static void union_check_locked(uint64_t now) {
+  if (!g.union_path[0] ||
+      (g.union_checked_ns && now - g.union_checked_ns < UNION_CHECK_US * 1000ull))
+    return;
+  g.union_checked_ns = now;
+  union_register_locked();
+  if (!g.uf) return;
+  int32_t self = (int32_t)getpid();
+  int others = 0;
+  for (int i = 0; i < UNION_PROCS; ++i) {
+    int32_t pid = __atomic_load_n(&g.uf->procs[i].pid, __ATOMIC_ACQUIRE);
+    if (pid != self && g.uf->procs[i].device == g.device_index && pid_alive(pid)) others++;
+  }
+  g.union_on = others > 0;
+}
+
+/* Add [a, b) to the device's charged spans; returns the part of it that
+ * none of them covered. */
+static uint64_t union_add_locked(uint64_t a, uint64_t b) {
+  if (b <= a) return 0;
+  if (flock(g.union_fd, LOCK_EX) != 0) return b - a;
+  span_t* sp = g.uf->dev[g.device_index].span;
+  uint32_t n = g.uf->dev[g.device_index].n;
+  if (n > UNION_SPANS) n = 0;                /* not a file of ours: start over */
+  uint32_t lo = 0, hi = n;                   /* the first span ending at or after a */
+  while (lo < hi) {
+    uint32_t mid = (lo + hi) / 2;
+    if (sp[mid].b < a) lo = mid + 1;
+    else hi = mid;
+  }
+  uint32_t i0 = lo, i1 = lo;
+  uint64_t covered = 0, s = a, e = b;
+  for (; i1 < n && sp[i1].a <= b; ++i1) {
+    uint64_t x = sp[i1].a > a ? sp[i1].a : a, y = sp[i1].b < b ? sp[i1].b : b;
+    if (y > x) covered += y - x;
+    if (sp[i1].a < s) s = sp[i1].a;
+    if (sp[i1].b > e) e = sp[i1].b;
+  }
+  if (i1 == i0 && n == UNION_SPANS) {        /* full: the oldest span goes */
+    if (i0 == 0) goto done;                  /* ... unless this one is older */
+    memmove(sp, sp + 1, (n - 1) * sizeof(*sp));
+    n--, i0--, i1--;
+  }
+  memmove(sp + i0 + 1, sp + i1, (n - i1) * sizeof(*sp));   /* [i0, i1) -> one span */
+  sp[i0] = (span_t){s, e};
+  n = n - (i1 - i0) + 1;
+  g.uf->dev[g.device_index].n = n;
+done:
+  flock(g.union_fd, LOCK_UN);
+  return (b - a) - covered;
+}
+
+/* The part of a window of `ns` that the worker has not been charged yet:
+ * the window placed on the host's clock by its anchor. */
+static uint64_t union_charge_locked(window_t* w, uint64_t ns) {
+  float since = 0.f;
+  if (w->anchor < 0 || !g.anchors[w->anchor].valid ||
+      g.ev_elapsed(&since, g.anchors[w->anchor].event, w->start) != CU__SUCCESS ||
+      since < 0.f) {
+    g.unanchored++;
+    return ns;
+  }
+  uint64_t a = g.anchors[w->anchor].host_ns + (uint64_t)((double)since * 1e6 + 0.5);
+  g.union_windows++;
+  return union_add_locked(a, a + ns);
+}
+
+/* Take a new anchor on the calling thread's stream s, if one is due and s
+ * is idle: an event recorded between two host clock reads and waited for
+ * at most ANCHOR_SPIN_US. */
+static void maybe_anchor(cu_stream_t s) {
+  if (!__atomic_load_n(&g.union_on, __ATOMIC_RELAXED)) return;   /* a lone process */
+  uint64_t now = now_ns();
+  int slot = -1;
+  pthread_mutex_lock(&g.mu);
+  if (g.union_on && now >= g.anchor_due_ns) {
+    g.anchor_due_ns = now + ANCHOR_RETRY_US * 1000ull;
+    for (int i = 0; i < N_ANCHORS && slot < 0; ++i)
+      if (i != g.cur_anchor && g.anchors[i].refs == 0) slot = i;
+    if (slot >= 0 && !g.anchors[slot].event &&
+        g.ev_create(&g.anchors[slot].event, CU__EVENT_DEFAULT) != CU__SUCCESS) {
+      g.anchors[slot].event = NULL;
+      slot = -1;
+    }
+    if (slot >= 0) {
+      g.anchors[slot].refs = 1;
+      g.anchors[slot].valid = 0;
+    }
+  }
+  pthread_mutex_unlock(&g.mu);
+  if (slot < 0) return;
+  anchor_t* an = &g.anchors[slot];
+  int ok = 0;
+  uint64_t t0 = 0, t1 = 0;
+  if (g.stream_query(s) == CU__SUCCESS) {
+    t0 = now_ns();
+    if (g.ev_record(an->event, s) == CU__SUCCESS) {
+      for (;;) {
+        cu_result_t r = g.ev_query(an->event);
+        t1 = now_ns();
+        if (r == CU__SUCCESS) {
+          ok = 1;
+          break;
+        }
+        if (r != CU__ERROR_NOT_READY || t1 - t0 > ANCHOR_SPIN_US * 1000ull) break;
+      }
+    }
+  }
+  pthread_mutex_lock(&g.mu);
+  an->refs = 0;
+  if (ok) {
+    an->host_ns = t0 + (t1 - t0) / 2;
+    an->err_ns = (t1 - t0 + 1) / 2;
+    an->valid = 1;
+    g.cur_anchor = slot;
+    g.anchor_due_ns = t1 + ANCHOR_EVERY_US * 1000ull;
+    g.anchors_taken++;
+    if (an->err_ns > g.anchor_err_max_ns) g.anchor_err_max_ns = an->err_ns;
+  } else if (t0) {
+    g.anchor_misses++;
+  }
+  pthread_mutex_unlock(&g.mu);
+}
+
 static void read_window_locked(window_t* w) {
   float ms = 0.f;
   if (g.ev_elapsed(&ms, w->start, w->end) == CU__SUCCESS) {
-    g.device_ns += (uint64_t)((double)ms * 1e6 + 0.5);
+    uint64_t ns = (uint64_t)((double)ms * 1e6 + 0.5);
+    g.window_ns += ns;
+    g.device_ns += g.union_on ? union_charge_locked(w, ns) : ns;
     g.windows++;
     drop_window_locked(w, 0);
   } else {
@@ -750,6 +1015,7 @@ static void close_drained_locked(stream_state_t* st) {
  * time read since the last call, which the caller pays. */
 static uint64_t gather_locked(void) {
   uint64_t now = now_ns();
+  union_check_locked(now);
   for (unsigned i = 0; i < g.n_streams; ++i) {
     stream_state_t* st = &g.streams[i];
     if (st->open && st->inflight == 0 && st->launches > 0) {
@@ -847,6 +1113,7 @@ static void launch_begin(launch_t* l, cu_stream_t stream, int v, int graph) {
   uint64_t due = gather_locked();
   pthread_mutex_unlock(&g.mu);
   pay(due);                          /* outside the lock: it may sleep */
+  maybe_anchor(s);
 
   pthread_mutex_lock(&g.mu);
   stream_state_t* st = stream_locked(key, s);
@@ -880,6 +1147,10 @@ static void launch_begin(launch_t* l, cu_stream_t stream, int v, int graph) {
       g.window_errors++;
       pthread_mutex_unlock(&g.mu);
       return;
+    }
+    if (g.union_on && g.cur_anchor >= 0) {   /* its start is after the anchor's */
+      w->anchor = g.cur_anchor;
+      g.anchors[w->anchor].refs++;
     }
     st->open = w;
     st->launches = 0;
@@ -1286,13 +1557,19 @@ HOOK_API int tpf_cuda_hook_report(char* buf, size_t len) {
       "\"hbm_charged_bytes\": %lld, \"hbm_denied\": %llu, \"captured\": %llu, "
       "\"windows\": %llu, \"window_errors\": %llu, \"unwindowed\": %llu, \"untimed\": %llu, "
       "\"streams_dropped\": %llu, \"limiter_errors\": %llu, \"wrapped_by_gpa\": %llu, "
-      "\"wrapped_by_dlsym\": %llu, \"entries\": {",
+      "\"wrapped_by_dlsym\": %llu, ",
       LOAD(launches), LOAD(graph_launches), LOAD(charges), LOAD(charged_mflops),
       LOAD(device_ns) / 1000, LOAD(blocked_us),
       (long long)__atomic_load_n(&g.hbm_charged_bytes, __ATOMIC_RELAXED), LOAD(hbm_denied),
       LOAD(captured), LOAD(windows), LOAD(window_errors), LOAD(unwindowed), LOAD(untimed),
       LOAD(streams_dropped), LOAD(limiter_errors), LOAD(wrapped_by_gpa),
       LOAD(wrapped_by_dlsym));
+  PUT("\"window_us\": %llu, \"union_on\": %d, \"union_windows\": %llu, "
+      "\"unanchored\": %llu, \"anchors\": %llu, \"anchor_misses\": %llu, "
+      "\"anchor_err_us_max\": %.3f, \"entries\": {",
+      LOAD(window_ns) / 1000, __atomic_load_n(&g.union_on, __ATOMIC_RELAXED),
+      LOAD(union_windows), LOAD(unanchored), LOAD(anchors_taken), LOAD(anchor_misses),
+      (double)__atomic_load_n(&g.anchor_err_max_ns, __ATOMIC_RELAXED) / 1e3);
   const char* sep = "";
   for (int e = 0; e < N_ENTRIES; ++e)
     for (int v = 0; v < 2; ++v) {

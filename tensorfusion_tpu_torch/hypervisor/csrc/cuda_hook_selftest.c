@@ -38,10 +38,16 @@
  *   freeze       a frozen worker's launch blocks until it is thawed;
  *   rtld_next    dlsym(RTLD_NEXT, ...) still resolves relative to its
  *                caller;
+ *   union        two processes of one worker whose windows overlap on the
+ *                card (the stand-in's events on the host's clock) are
+ *                charged the union of their windows, not the sum;
+ *   union_other  two processes of different workers are charged each its
+ *                own windows' sum, as one process alone is;
  *   --bench      the hook's cost per launch against the driver's own entry
  *                (uncontended quota), one JSON line.
  *
- * Each case prints "PASS <case>: ..." and, last, the hook's report.
+ * Each case prints "PASS <case>: ..." and, last, the hook's report; the
+ * union cases print the second process's report first, as "CHILD <json>".
  */
 
 #define _GNU_SOURCE
@@ -51,7 +57,9 @@
 #include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
+#include <sys/wait.h>
 #include <time.h>
+#include <unistd.h>
 
 #include "cuda_types.h"
 
@@ -269,6 +277,94 @@ static unsigned long long report_field(const char* name) {
   const char* at = strstr(buf, key);
   CHECK(at != NULL);
   return strtoull(at + strlen(key), NULL, 10);
+}
+
+/* Two processes launch on one stream each for the same 300 ms of host
+ * time, their events on the host's clock and complete only at a
+ * synchronize: of one worker (same_worker) or of two.  Each first reads a
+ * window (it registers in the worker's side file), waits until the other
+ * is seen (UNION_CHECK_US), takes an anchor on its idle stream, and then
+ * launches.  The parent checks what both were charged against what their
+ * windows measured. */
+static int case_union(int same_worker, const char* shm_base) {
+  launch_kernel_fn launch = proc("cuLaunchKernel", CU__GET_PROC_ADDRESS_DEFAULT);
+  ctx_sync_fn ctx_sync = proc("cuCtxSynchronize", CU__GET_PROC_ADDRESS_DEFAULT);
+  int down[2], up[2];
+  CHECK(pipe(down) == 0 && pipe(up) == 0);
+  fflush(stdout);
+  pid_t child = fork();
+  CHECK(child >= 0);
+  int parent = child > 0;
+  if (!parent && !same_worker) {
+    char path[512];
+    snprintf(path, sizeof(path), "%s/t/w2", shm_base);
+    setenv("TPF_SHM_PATH", path, 1);
+  }
+  int tx = parent ? down[1] : up[1], rx = parent ? up[0] : down[0];
+  char byte = 0;
+#define BARRIER() CHECK(write(tx, "x", 1) == 1 && read(rx, &byte, 1) == 1)
+  CHECK(hook_metered() == 1);
+  for (int i = 0; i < 2; ++i) {          /* a window read: registered */
+    CHECK(LAUNCH(launch, S(0x100)) == CU__SUCCESS);
+    CHECK(ctx_sync() == CU__SUCCESS);
+  }
+  BARRIER();
+  usleep(300000);                        /* past the next count of the live */
+  for (int i = 0; i < 2; ++i) {          /* union mode, then an anchor */
+    CHECK(LAUNCH(launch, S(0x100)) == CU__SUCCESS);
+    CHECK(ctx_sync() == CU__SUCCESS);
+  }
+  BARRIER();
+  double t0 = now_s();
+  while (now_s() - t0 < 0.3) {
+    CHECK(LAUNCH(launch, S(0x100)) == CU__SUCCESS);
+    usleep(50);
+  }
+  CHECK(ctx_sync() == CU__SUCCESS);
+  CHECK(LAUNCH(launch, S(0x100)) == CU__SUCCESS);  /* reads every window */
+  char buf[8192];
+  CHECK(t.report(buf, sizeof(buf)) > 0);
+  if (!parent) {
+    size_t n = strlen(buf);
+    CHECK(write(tx, buf, n + 1) == (ssize_t)(n + 1));
+    _exit(0);
+  }
+  char theirs[8192];
+  size_t got = 0;
+  ssize_t r;
+  while ((got == 0 || theirs[got - 1] != '\0') && got < sizeof(theirs) &&
+         (r = read(rx, theirs + got, sizeof(theirs) - got)) > 0)
+    got += (size_t)r;
+  int status = 0;
+  CHECK(waitpid(child, &status, 0) == child && WIFEXITED(status) && WEXITSTATUS(status) == 0);
+  CHECK(got > 0 && theirs[got - 1] == '\0');
+  printf("CHILD %s\n", theirs);
+#undef BARRIER
+  unsigned long long mine_window = report_field("window_us");
+  unsigned long long mine_union = report_field("union_on");
+  const char* at = strstr(theirs, "\"window_us\": ");
+  CHECK(at != NULL);
+  unsigned long long their_window = strtoull(at + strlen("\"window_us\": "), NULL, 10);
+  at = strstr(theirs, "\"device_us\": ");
+  CHECK(at != NULL);
+  unsigned long long their_charged = strtoull(at + strlen("\"device_us\": "), NULL, 10);
+  stats_t s = stats();
+  unsigned long long charged = s.device_us + their_charged;
+  unsigned long long longest = mine_window > their_window ? mine_window : their_window;
+  CHECK(mine_window >= 250000 && their_window >= 250000);
+  if (same_worker) {
+    /* the two windows' union: the longer one and the skew of their starts
+     * (the window open when union mode began is charged whole) */
+    CHECK(mine_union == 1 && strstr(theirs, "\"union_on\": 1") != NULL);
+    CHECK(report_field("unanchored") <= 1 && report_field("anchors") >= 1);
+    CHECK(charged >= longest && charged < (mine_window + their_window) * 3 / 4);
+  } else {
+    CHECK(mine_union == 0 && strstr(theirs, "\"union_on\": 0") != NULL);
+    CHECK(s.device_us == mine_window && their_charged == their_window);
+  }
+  printf("PASS %s: windows %llu + %llu us, charged %llu us\n",
+         same_worker ? "union" : "union_other", mine_window, their_window, charged);
+  return 0;
 }
 
 static int case_window(void) {
@@ -608,6 +704,20 @@ int main(int argc, char** argv) {
     make_worker(limiter_path, shm_base, 0, UINT64_C(1) << 50, UINT64_C(1) << 50);
     open_driver();
     rc = case_freeze();
+  } else if (strcmp(which, "union") == 0 || strcmp(which, "union_other") == 0) {
+    setenv("TPF_FAKE_CUDA_CLOCK", "host", 1);
+    setenv("TPF_FAKE_CUDA_LAG", "1000000000", 1);
+    make_worker(limiter_path, shm_base, 0, UINT64_C(1) << 50, UINT64_C(1) << 50);
+    if (strcmp(which, "union_other") == 0) {
+      tfl_device_quota_t q;
+      memset(&q, 0, sizeof(q));
+      snprintf(q.chip_id, sizeof(q.chip_id), "fake-gpu");
+      q.duty_limit_bp = 10000;
+      q.capacity_mflop = q.refill_mflop_per_s = UINT64_C(1) << 50;
+      CHECK(t.create_worker("t", "w2", &q, 1) == 0);
+    }
+    open_driver();
+    rc = case_union(strcmp(which, "union") == 0, shm_base);
   } else if (strcmp(which, "--bench") == 0) {
     make_worker(limiter_path, shm_base, 0, UINT64_C(1) << 50, UINT64_C(1) << 50);
     open_driver();

@@ -16,7 +16,10 @@
  * once TPF_FAKE_CUDA_LAG (default 0) more launches have been made, or a
  * synchronize has been made since, and the elapsed time of two events is
  * the clock between them; a stream is idle (cuStreamQuery) on the same
- * terms for its last launch.  tpf_fake_cuda_drain() completes everything
+ * terms for its last launch.  With TPF_FAKE_CUDA_CLOCK=host an event
+ * records the host's CLOCK_MONOTONIC instead (in microseconds), so the
+ * windows of processes that launch at the same time overlap as they would
+ * on one card.  tpf_fake_cuda_drain() completes everything
  * as a synchronize does, without a call any hook sees.  A stream is
  * capturing between cuStreamBeginCapture and cuStreamEndCapture, and
  * launches on it advance nothing; cuStreamDestroy is only counted.  Allocations hand out increasing
@@ -28,6 +31,7 @@
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
+#include <time.h>
 
 #include "cuda_types.h"
 
@@ -224,6 +228,12 @@ FAKE_API cu_result_t cuEventRecord(cu_event_t e, cu_stream_t s) {
   pthread_mutex_lock(&g.mu);
   if (capturing_locked(s)) g.capture_event_records++;
   e->clock_us = g.clock_us;
+  const char* clock = getenv("TPF_FAKE_CUDA_CLOCK");
+  if (clock && strcmp(clock, "host") == 0) {
+    struct timespec ts;
+    clock_gettime(CLOCK_MONOTONIC, &ts);
+    e->clock_us = (uint64_t)ts.tv_sec * 1000000ull + (uint64_t)ts.tv_nsec / 1000;
+  }
   e->seq = g.seq;
   e->recorded = 1;
   g.event_records++;

@@ -261,8 +261,16 @@ class ShmView:
             freeze_ts_us=freeze_ts, pids=pids, devices=devices)
 
 
+def hook_side_file(shm_path: str) -> str:
+    """The launch hook's side file of a worker's segment (``.<pod>.hook``
+    beside it: csrc/cuda_hook.c, "Several processes of one worker")."""
+    head, pod = os.path.split(shm_path)
+    return os.path.join(head, f".{pod}.hook")
+
+
 def list_worker_segments(shm_base: str) -> List[tuple]:
-    """Enumerate (ns, pod, path) worker segments under the shm base dir."""
+    """Enumerate (ns, pod, path) worker segments under the shm base dir
+    (hidden files, such as the launch hook's side files, are not)."""
     out = []
     if not os.path.isdir(shm_base):
         return out
@@ -271,5 +279,6 @@ def list_worker_segments(shm_base: str) -> List[tuple]:
         if not os.path.isdir(ns_dir):
             continue
         for pod in sorted(os.listdir(ns_dir)):
-            out.append((ns, pod, os.path.join(ns_dir, pod)))
+            if not pod.startswith("."):
+                out.append((ns, pod, os.path.join(ns_dir, pod)))
     return out

@@ -35,7 +35,7 @@ from .allocation import AllocationController, WorkerAllocation
 from .device import DeviceController
 from .erl import AutoFreezeRule, ERLParameters, ERLQuotaController, Observation
 from .framework import WorkerSpec, WorkerStatus
-from .limiter_binding import (DeviceQuota, Limiter, LimiterError, ShmView,
+from .limiter_binding import (DeviceQuota, Limiter, LimiterError, ShmView, hook_side_file,
                               list_worker_segments)
 
 log = logging.getLogger("tpf.hypervisor.worker")
@@ -175,6 +175,7 @@ class WorkerController:
                 self.limiter.remove_worker(ns, pod)
             except LimiterError:
                 log.warning("shm segment for %s already gone", worker_key)
+            _unlink_side_file(tracked.shm_path)
         self.erl.forget(worker_key)
         for card in self._cards.values():
             for key in [k for k in card.charged if k[0] == worker_key]:
@@ -228,8 +229,10 @@ class WorkerController:
         tracked.shm_path = os.path.join(self.shm_base, spec.namespace,
                                         spec.name)
         tracked.view = ShmView(tracked.shm_path)
-        tracked.status.env[constants.ENV_SHM_PATH] = tracked.shm_path
         self._inject_mandatory_metering(tracked)
+        # last: a reader of the worker list that sees the segment's path
+        # sees the whole env
+        tracked.status.env[constants.ENV_SHM_PATH] = tracked.shm_path
 
     def _inject_mandatory_metering(self, tracked: TrackedWorker) -> None:
         """Preload the launch and memory hook into the worker, so that an
@@ -487,3 +490,12 @@ class WorkerController:
                         os.unlink(path)
                     except OSError:
                         pass
+                _unlink_side_file(path)
+
+
+def _unlink_side_file(shm_path: str) -> None:
+    """Remove the launch hook's side file of a segment, if it made one."""
+    try:
+        os.unlink(hook_side_file(shm_path))
+    except FileNotFoundError:
+        pass

@@ -85,10 +85,50 @@ def test_selftest_case(built, limiter_lib, tmp_path, case):
     assert dev.launches == report["charges"] == report["launches"]
     assert dev.total_charged_mflop == report["charged_mflops"]
     assert proc.pid in state.pids
+    # one process alone on its worker charges its windows' sum
+    assert report["union_on"] == 0 and report["device_us"] == report["window_us"]
     if case == "memory":
         assert dev.hbm_used_bytes == 0 and dev.hbm_denied_events == 1
     if case in ("block", "freeze"):
         assert dev.blocked_events > 0
+
+
+@pytest.mark.parametrize("case", ["union", "union_other"])
+def test_selftest_two_processes_on_one_card(built, limiter_lib, tmp_path, case):
+    """Two processes under the hook launch on the card over the same 300 ms
+    (the stand-in's events on the host's clock).  Of one worker they are
+    charged the union of their windows, about one process's windows and
+    far from their sum, and the segment holds what both hooks charged; of
+    two workers each is charged its own windows' sum.  The hook's side
+    files are no segments to the node agent."""
+    r = subprocess.run([built["selftest"], limiter_lib, str(tmp_path / "shm"), case],
+                       env=_env(built), capture_output=True, text=True, timeout=60)
+    assert r.returncode == 0, r.stdout + r.stderr
+    lines = r.stdout.strip().splitlines()
+    assert f"PASS {case}" in r.stdout
+    child = json.loads(next(l for l in lines if l.startswith("CHILD "))[len("CHILD "):])
+    parent = json.loads(lines[-1])
+    both = (parent, child)
+    base = tmp_path / "shm" / "t"
+    if case == "union":
+        dev = _segment(base / "w").devices[0]
+        assert dev.launches == sum(h["charges"] for h in both)
+        assert dev.total_charged_mflop == sum(h["charged_mflops"] for h in both)
+        assert all(h["union_on"] == 1 and h["anchors"] >= 1 for h in both)
+        charged = sum(h["device_us"] for h in both)
+        windows = [h["window_us"] for h in both]
+        assert max(windows) <= charged < 0.75 * sum(windows)
+        pods = ["w"]
+    else:
+        for name, hook in (("w", parent), ("w2", child)):
+            dev = _segment(base / name).devices[0]
+            assert dev.launches == hook["charges"]
+            assert dev.total_charged_mflop == hook["charged_mflops"]
+            assert hook["union_on"] == 0 and hook["device_us"] == hook["window_us"]
+        pods = ["w", "w2"]
+    assert sorted(p.name for p in base.iterdir()) == sorted(pods + [f".{p}.hook" for p in pods])
+    assert port.list_worker_segments(str(tmp_path / "shm")) == [
+        ("t", p, str(base / p)) for p in pods]
 
 
 def test_launch_overhead(built, limiter_lib, tmp_path):

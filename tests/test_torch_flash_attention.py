@@ -145,6 +145,11 @@ def test_port_sources_import_no_jax_and_no_reference_package():
     assert len(_PORT_FILES) > 10
     assert REPO / "tensorfusion_tpu_torch" / "remoting" / "sharded.py" in _PORT_FILES
     assert REPO / "tensorfusion_tpu_torch" / "profile_shard.py" in _PORT_FILES
+    for new in ("api/types.py", "store.py", "storecache.py", "shardedstore.py", "gateway.py",
+                "statestore.py", "remote_store.py", "utils/leader.py", "utils/tlsutil.py",
+                "config/chip_info.py", "config/global_config.py",
+                "hypervisor/control_plane.py"):
+        assert REPO / "tensorfusion_tpu_torch" / new in _PORT_FILES, new
     bad = [str(p.relative_to(REPO)) for p in _PORT_FILES
            if _FORBIDDEN.search(p.read_text())]
     assert not bad, f"port files importing jax or tensorfusion_tpu: {bad}"

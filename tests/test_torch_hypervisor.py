@@ -448,6 +448,75 @@ def test_worker_tick_leaves_equal_segments(stacks, clock):
             assert got["port"] == got["ref"]
 
 
+HOOKED_TENANT = r"""
+import ctypes as C, sys
+cuda = C.CDLL("libcuda.so.1")
+gpa = cuda.cuGetProcAddress_v2
+gpa.argtypes = [C.c_char_p, C.POINTER(C.c_void_p), C.c_int, C.c_uint64, C.POINTER(C.c_int)]
+fn, status = C.c_void_p(), C.c_int()
+assert gpa(b"cuLaunchKernel", C.byref(fn), 12080, 0, C.byref(status)) == 0
+launch = C.CFUNCTYPE(C.c_int, *([C.c_void_p] + [C.c_uint] * 7 + [C.c_void_p] * 3))(fn.value)
+for _ in range(int(sys.argv[1])):
+    assert launch(None, 1, 1, 1, 32, 1, 1, 0, None, None, None) == 0
+hook = C.CDLL(None)
+buf = C.create_string_buffer(1 << 14)
+assert hook.tpf_cuda_hook_report(buf, 1 << 14) > 0
+print(buf.value.decode())
+"""
+
+
+def test_a_hooked_single_process_worker_charges_and_ticks_as_before(stacks, clock, tmp_path):
+    """A port worker's one process, spawned with the worker's env (the
+    launch hook preloaded) over the stand-in driver, each launch a window
+    of 100 us: it is charged its windows' sum, one charge a launch, as
+    before the hook charged a worker's several processes their union.  The
+    same charges made through the reference worker's client face leave
+    equal segments and worker status after each of 10 ticks."""
+    fake = tmp_path / "fake_cuda"
+    fake.mkdir()
+    _build.build_fake_cuda(fake)
+    for side, pkg in SIDES:
+        chip = stacks[side].devices.devices()[0].info.chip_id
+        stacks[side].workers.add_worker(_spec(pkg, "a", chip, duty=25.0, qos="low"))
+    wenv = stacks["port"].workers.get("ns/a").status.env
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPF_")}
+    env.update(wenv, LD_LIBRARY_PATH=str(fake), TPF_FAKE_CUDA_LAUNCH_US="100")
+    n = 40
+    child = subprocess.Popen([sys.executable, "-c", HOOKED_TENANT, str(n)], env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out, err = child.communicate(timeout=60)
+    assert child.returncode == 0, err
+    hook = json.loads(out.strip().splitlines()[-1])
+    assert hook["metered"] == 1 and hook["charges"] == n and hook["union_on"] == 0
+    assert hook["device_us"] == hook["window_us"] == (n - 1) * 100
+    # launch k pays the device time read since launch k - 1: none, then one window each
+    peak = float(wenv[constants.ENV_PEAK_MFLOPS])
+    gathered = [int(float(k * 100_000) * peak / 1e9) for k in range(n)]
+    dues = [0] + [b - a for a, b in zip(gathered, gathered[1:])]
+    assert sum(dues) == hook["charged_mflops"]
+    s = stacks["ref"]
+    client = ref.Limiter(fresh_library(s.limiter.lib_path, "hookedref"))
+    client.attach(s.workers.get("ns/a").shm_path)
+    for due in dues:
+        assert client.charge_compute(0, due).allowed
+    for side in ("ref", "port"):
+        stacks[side].workers.register_pid("ns/a", child.pid)
+    for tick in range(10):
+        clock.advance(0.1)
+        for side in ("ref", "port"):
+            stacks[side].workers.tick()
+        assert _segments(stacks["port"]) == _segments(stacks["ref"]), f"tick {tick}"
+        got = {side: dataclasses.asdict(stacks[side].workers.get("ns/a").status)
+               for side in ("ref", "port")}
+        assert (_port_env(got["ref"].pop("env")).keys()
+                == _without_hook_env(got["port"].pop("env")).keys())
+        assert got["port"] == got["ref"]
+    side_file = port.limiter_binding.hook_side_file(wenv[constants.ENV_SHM_PATH])
+    assert os.path.exists(side_file)
+    stacks["port"].workers.remove_worker("ns/a")
+    assert not os.path.exists(side_file)
+
+
 class _Duty:
     """A device controller whose one card reports a fixed NVML duty, and
     whether NVML can tell a process's."""
@@ -881,14 +950,31 @@ def test_daemon_wiring_in_process(mock_provider_lib, limiter_lib, tmp_path, monk
         daemon.stop()
 
 
-def test_operator_url_is_refused(tmp_path):
+def test_operator_url_is_refused(mock_provider_lib, limiter_lib, tmp_path, monkeypatch):
+    """An --operator-url that no state store answers is refused when the
+    daemon starts: it cannot register its node, so it raises rather than
+    serving without the control plane (the flag itself is ported: see
+    tests/test_torch_control_plane.py), and it stops cleanly."""
     from tensorfusion_tpu_torch.hypervisor.__main__ import HypervisorDaemon, build_parser
+    from tensorfusion_tpu_torch.remote_store import RemoteStoreError
 
-    args = build_parser().parse_args(["--operator-url", "http://op:8080",
-                                      "--snapshot-dir", str(tmp_path / "snap")])
-    with pytest.raises(SystemExit, match="control-plane backend is not ported"):
-        HypervisorDaemon(args)
-    assert not (tmp_path / "snap").exists()
+    _mock_env(monkeypatch, "v5e-8")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        dead = s.getsockname()[1]
+    args = build_parser().parse_args(
+        _daemon_argv(tmp_path, fresh_library(mock_provider_lib, "opurl"), limiter_lib,
+                     "opurl")
+        + ["--operator-url", f"http://127.0.0.1:{dead}", "--pool", "pool-a",
+           "--store-token", "t"])
+    daemon = HypervisorDaemon(args)
+    assert (args.pool, args.store_token) == ("pool-a", "t")
+    try:
+        with pytest.raises(RemoteStoreError, match="Connection refused"):
+            daemon.start()
+    finally:
+        daemon.stop()
+    assert daemon.workers.list() == []
 
 
 def test_daemon_boots_and_adopts_a_worker(native_build, tmp_path):
