@@ -63,14 +63,23 @@ own processes, count from 0 at their start):
 - the control plane (``control_plane``): the port's state store
   (``python -m tensorfusion_tpu_torch.statestore``, persisted, with a
   token) and the daemon joined to it with ``--operator-url``; the Node,
-  TPUNode and the card's TPUChip read back over a ``RemoteStore``; a pod
-  bound to the node at a 25% contract (247.25 TFLOPs), which the daemon
-  turns into a worker whose segment holds 2500 bp; the unmodified 32-layer
-  tenant (``chip_smoke.py --tenant-raw DIR``) under the worker's env for
-  about 20 s, its segment against its hook report; the daemon's metrics
-  lines in the store; the store killed and restarted from its journal,
-  a second pod reaching the agent after it; both pods deleted and their
-  workers and segments gone.  Its launches are the tenant's;
+  TPUNode and the card's TPUChip read back over a ``RemoteStore``; the
+  platform composed in this process over that store (the webhook, the
+  scheduler with its fit and topology plugins, an allocator fed the
+  store's TPUChip); a pod with user annotations only (h100-sxm, duty 25,
+  HBM, soft, QoS low) admitted at 247.25 TFLOPs, bound to the node and
+  turned by the daemon into a worker whose segment holds 2500 bp; the
+  unmodified 32-layer tenant (``chip_smoke.py --tenant-raw DIR``) under
+  the worker's env for about 20 s, its segment against its hook report,
+  while a pod asking for more HBM than is left and a pod over its
+  namespace's quota are refused; a gang of two bound whole and a gang of
+  three that cannot form bound not at all; a QoS-critical pod preempting
+  a QoS-low one, worker for worker; the daemon's metrics lines in the
+  store; the store killed and restarted from its journal, a pod admitted
+  and scheduled after it, and an allocator rebuilt from the store equal
+  to the live one; every pod deleted and its worker and segment gone;
+  then the scheduler alone on the host over 64 nodes of 8 cards and 512
+  pods.  Its launches are the tenant's;
 
 - serving: greedy ``generate`` requests, 32 layers, through the metered
   client;
@@ -144,6 +153,11 @@ line is
 
 Without a CUDA device, or outside a checkout, it exits non-zero and
 prints no result.  It imports nothing of JAX.
+
+``python3 chip_smoke.py --control-plane N`` runs the device and build
+phases and then the control-plane phase alone, N times in one process
+(each preceded by its ``memory`` line), to look for a rare failure of
+that phase; it prints no kernel table and no result line.
 """
 
 from __future__ import annotations
@@ -3999,14 +4013,20 @@ def phase_shard(torch, llama, remoting, hardware, hv_build, limiter_lib, name, s
     return launches
 
 
-# -- the control plane: the state store and the node agent joined to it -------
+# -- the control plane: the store, the node agent, admission and scheduling ---
 
 CP_TOKEN = "chip-smoke-store"              # the state store's admin token
 CP_NODE = "chip-smoke-node"                # the node agent's name in the store
 CP_POOL = "pool-h100"
-CP_TFLOPS = "247.25"                       # the pod's contract: 25% of 989 TFLOP/s
+CP_GENERATION = "h100-sxm"
+CP_DUTY = "25"                             # the tenant's request: a quarter of the card
+CP_TFLOPS = "247.25"                       # what admission makes of it: 25% of 989 TFLOP/s
 CP_WINDOW_S = 20.0                         # the tenant's calls after its first
 CP_TIMEOUT_S = 60.0                        # an object or a worker to appear
+CP_GANG_TIMEOUT_S = 2.0                    # the refused gang's permit timeout
+CP_QUOTA_TFLOPS = 300.0                    # the quota namespace: one 25% pod, not two
+CP_SCALE = (64, 8, 512)                    # the host-only step: nodes, cards a node, pods
+CP_SCALE_SEED = 64
 
 
 def _cp_wait(fn, what, timeout=CP_TIMEOUT_S, procs=()):
@@ -4022,7 +4042,7 @@ def _cp_wait(fn, what, timeout=CP_TIMEOUT_S, procs=()):
                 raise RuntimeError(f"{who} exited ({proc.returncode}) before {what}")
         if time.monotonic() > deadline:
             raise RuntimeError(f"timed out waiting for {what}")
-        time.sleep(0.1)
+        time.sleep(0.05)
 
 
 def _start_statestore(work, port=0):
@@ -4041,17 +4061,116 @@ def _start_statestore(work, port=0):
     return proc, int(port_file.read_text())
 
 
-def _cp_pod(api_types, constants, name, chip, tflops, hbm):
-    """A pod bound to CP_NODE with the annotations the webhook and the
-    scheduler would write: the chip, a TFLOPs contract, HBM, soft
-    isolation, QoS low."""
-    pod = api_types.Pod.new(name, namespace="default")
-    pod.spec.node_name = CP_NODE
-    pod.metadata.annotations.update({
-        constants.ANN_CHIP_IDS: chip, constants.ANN_TFLOPS_REQUEST: tflops,
-        constants.ANN_HBM_REQUEST: str(hbm), constants.ANN_ISOLATION: constants.ISOLATION_SOFT,
-        constants.ANN_QOS: constants.QOS_LOW})
-    return pod
+class _Platform:
+    """The control plane composed in this process, as the reference's own
+    scheduler tests compose it, over the store: an allocator fed the
+    store's TPUChips, the port, index and gang managers, the webhook
+    (parser and mutator, the port's chip table) and the scheduler with the
+    fit and topology plugins.  ``bind`` does what the reference operator's
+    bind does (a version-checked update that sets the node, merges the
+    stamped annotations and marks the pod Running); ``evict`` deletes the
+    pod and releases its allocation.  It records when each pod was
+    submitted, bound and evicted, and the scheduler's reasons."""
+
+    def __init__(self, rs, chips, nodes_fn):
+        from tensorfusion_tpu_torch import constants
+        from tensorfusion_tpu_torch.allocator import (IndexAllocator, PortAllocator,
+                                                      TPUAllocator)
+        from tensorfusion_tpu_torch.api import types as api_types
+        from tensorfusion_tpu_torch.config.chip_info import mock_chip_info
+        from tensorfusion_tpu_torch.scheduler import (GangManager, ICITopologyPlugin, Scheduler,
+                                                      TPUResourcesFit)
+        from tensorfusion_tpu_torch.store import ConflictError
+        from tensorfusion_tpu_torch.webhook import PodMutator, WorkloadParser
+
+        self.c, self.types, self.rs, self._conflict = constants, api_types, rs, ConflictError
+        self.alloc = TPUAllocator(store=rs)
+        for chip in chips:
+            self.alloc.upsert_chip(chip)
+        self.gang = GangManager()
+        self.mutator = PodMutator(rs, WorkloadParser(rs, chip_models=mock_chip_info(),
+                                                     default_pool=CP_POOL))
+        self.sched = Scheduler(nodes_fn=nodes_fn, bind_fn=self.bind,
+                               failure_handler=self._failed)
+        self.gang.bind_scheduler(self.sched)
+        self.sched.permit_reject_listeners.append(
+            lambda key, reason: self.permit_rejects.append((key, reason)))
+        self.sched.register(TPUResourcesFit(
+            self.alloc, gang=self.gang, ports=PortAllocator(), indices=IndexAllocator(),
+            pods_on_node=self.pods_on_node, evict=self.evict))
+        self.sched.register(ICITopologyPlugin())
+        self.submitted, self.bound, self.evicted = {}, {}, {}
+        self.reasons, self.permit_rejects, self.bind_conflicts = {}, [], 0
+
+    def submit(self, name, ann, ns="default"):
+        """A pod with user annotations only, through the webhook into the
+        store and the scheduler's queue; its key."""
+        pod = self.types.Pod.new(name, namespace=ns)
+        pod.metadata.annotations.update(ann)
+        pod.spec.containers = [self.types.Container(name="main")]
+        self.submitted[pod.key()] = time.monotonic()
+        pod = self.rs.create(self.mutator.handle(pod)).thaw()
+        self.sched.enqueue(pod)
+        return pod.key()
+
+    def bind(self, pod, node):
+        for attempt in range(5):
+            current = self.rs.get(self.types.Pod, pod.metadata.name,
+                                  pod.metadata.namespace).thaw()
+            current.spec.node_name = node
+            current.metadata.annotations.update(pod.metadata.annotations)
+            current.status.phase = self.c.PHASE_RUNNING
+            current.status.host_ip = node
+            try:
+                self.rs.update(current, check_version=True)
+                break
+            except self._conflict:
+                self.bind_conflicts += 1
+                if attempt == 4:
+                    raise
+        self.bound[pod.key()] = time.monotonic()
+
+    def _failed(self, pod, reason):
+        self.reasons[pod.key()] = reason
+
+    def pods_on_node(self, node):
+        return [p for p in self.rs.list(self.types.Pod) if p.spec.node_name == node]
+
+    def evict(self, pod):
+        self.evicted[pod.key()] = time.monotonic()
+        self.delete(pod.key())
+
+    def delete(self, key):
+        """Delete a pod from the store and forget it everywhere (what the
+        operator does on the pod's DELETED event)."""
+        ns, name = key.split("/", 1)
+        self.rs.delete(self.types.Pod, name, ns)
+        self.sched.forget(key)
+        self.gang.on_pod_deleted(key)
+        self.alloc.dealloc(key)
+
+    def chip_ids(self, key):
+        ns, name = key.split("/", 1)
+        return self.rs.get(self.types.Pod, name, ns).metadata.annotations.get(
+            self.c.ANN_CHIP_IDS, "")
+
+    def available(self):
+        return {s.chip.name: dataclasses.asdict(s.available()) for s in self.alloc.chips()}
+
+    def sync(self, what):
+        """Flush the allocator's chip status into the store until the store
+        holds it: a write that conflicts with the agent's inventory write
+        goes back on the allocator's dirty list and is retried, and a
+        field the agent reverted would never match."""
+        def synced():
+            self.alloc.sync_to_store()
+            for state in self.alloc.chips():
+                st = self.rs.get(self.types.TPUChip, state.chip.name).status
+                if (dataclasses.asdict(st.available) != dataclasses.asdict(state.available())
+                        or sorted(st.running_apps) != sorted(state.holders)):
+                    return False
+            return True
+        _cp_wait(synced, f"the allocator's chip status in the store ({what})")
 
 
 def _cp_worker(url, key):
@@ -4066,9 +4185,20 @@ def _cp_worker(url, key):
     return None
 
 
-def _cp_tenant(env, out, view):
+def _cp_gone(url, key, shm_path):
+    """The daemon lists no worker ``key`` and its segment is unlinked."""
+    import os
+
+    return not os.path.exists(shm_path) and not any(
+        f"{w['spec']['namespace']}/{w['spec']['name']}" == key
+        for w in _api(url, "/api/v1/workers"))
+
+
+def _cp_tenant(env, out, view, during=None):
     """The unmodified 32-layer tenant under a worker's env for CP_WINDOW_S
-    after its first call; its records and the segment once it stopped."""
+    after its first call, ``during()`` run once that call is done (it
+    costs no device time); the tenant's records, the segment once it
+    stopped, and what ``during`` returned."""
     import os
 
     proc = subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--tenant-raw",
@@ -4077,7 +4207,9 @@ def _cp_tenant(env, out, view):
     try:
         _cp_wait(lambda: any("t1" in l for l in _tenant_lines(out)), "the tenant's first call",
                  timeout=NODE_START_TIMEOUT_S, procs=[("the tenant", proc)])
-        time.sleep(CP_WINDOW_S)
+        t_first = time.monotonic()
+        extra = during() if during is not None else None
+        time.sleep(max(0.0, CP_WINDOW_S - (time.monotonic() - t_first)))
         (out / "stop").touch()
         _cp_wait(lambda: any("stopped" in l for l in _tenant_lines(out)), "the tenant's stop",
                  timeout=NODE_STOP_TIMEOUT_S, procs=[("the tenant", proc)])
@@ -4089,22 +4221,254 @@ def _cp_tenant(env, out, view):
         proc.wait()
     lines = _tenant_lines(out)
     return ([l for l in lines if "t1" in l], next(l for l in lines if "stopped" in l),
-            next(l["check"] for l in lines if "check" in l), seg, proc.pid)
+            next(l["check"] for l in lines if "check" in l), seg, proc.pid, extra)
+
+
+def _cp_user_ann(c, duty, hbm, qos, **extra):
+    """A user's request: the generation, a duty share, HBM, soft isolation
+    and a QoS; nothing the webhook or the scheduler writes."""
+    return {c.ANN_CHIP_GENERATION: CP_GENERATION, c.ANN_DUTY_REQUEST: str(duty),
+            c.ANN_HBM_REQUEST: str(int(hbm)), c.ANN_ISOLATION: c.ISOLATION_SOFT,
+            c.ANN_QOS: qos, **extra}
+
+
+def _cp_refusals(pf, url, chip_name):
+    """While the tenant runs: a pod asking for more HBM than the card has
+    left, and a namespace quota that admits one 25% pod and refuses the
+    second.  Both refused pods stay unbound, reach no worker and leave the
+    chip's published availability as it was."""
+    c, t = pf.c, pf.types
+    row, checks = {}, {}
+    left = pf.alloc.get_chip(chip_name).available().hbm_bytes
+    before = dataclasses.asdict(pf.rs.get(t.TPUChip, chip_name).status.available)
+    big = pf.submit("over-hbm", _cp_user_ann(c, 10, left + (1 << 30), c.QOS_LOW))
+    reason = _cp_wait(lambda: pf.reasons.get(big), "the over-HBM pod's refusal")
+    time.sleep(1.0)         # the agent would have had the time to act on a bind
+    row["hbm"] = {"asked": left + (1 << 30), "left": left, "reason": reason}
+    checks["refused_hbm"] = ("HBM" in reason and big not in pf.bound
+                             and not pf.chip_ids(big) and _cp_worker(url, big) is None)
+    pf.delete(big)
+
+    quota = t.TPUResourceQuota.new("quota", namespace="team-q")
+    quota.spec.total.requests.tflops = CP_QUOTA_TFLOPS
+    pf.alloc.quota.set_quota(pf.rs.create(quota))
+    first = pf.submit("q1", _cp_user_ann(c, 25, 1 << 30, c.QOS_LOW), ns="team-q")
+    _cp_wait(lambda: first in pf.bound, "the quota namespace's first pod bound")
+    w1 = _cp_wait(lambda: _cp_worker(url, first), "the quota namespace's first worker")
+    pf.sync("q1 bound")
+    with_q1 = dataclasses.asdict(pf.rs.get(t.TPUChip, chip_name).status.available)
+    second = pf.submit("q2", _cp_user_ann(c, 25, 1 << 30, c.QOS_LOW), ns="team-q")
+    reason = _cp_wait(lambda: pf.reasons.get(second), "the over-quota pod's refusal")
+    pf.sync("q2 refused")
+    after = dataclasses.asdict(pf.rs.get(t.TPUChip, chip_name).status.available)
+    row["quota"] = {"tflops": CP_QUOTA_TFLOPS, "reason": reason,
+                    "available_with_q1": with_q1, "available_after_refusal": after}
+    checks["refused_quota"] = ("quota" in reason and second not in pf.bound
+                               and not pf.chip_ids(second) and after == with_q1
+                               and with_q1 != before and _cp_worker(url, second) is None)
+    for key in (first, second):
+        pf.delete(key)
+    _cp_wait(lambda: _cp_gone(url, first, w1["status"]["env"]["TPF_SHM_PATH"]),
+             "the quota pod's worker removed")
+    pf.alloc.quota.remove_quota("team-q")
+    pf.rs.delete(t.TPUResourceQuota, "quota", "team-q")
+    pf.sync("quota pods deleted")
+    checks["refusals_left_no_trace"] = (
+        dataclasses.asdict(pf.rs.get(t.TPUChip, chip_name).status.available) == before)
+    return row, checks
+
+
+def _cp_gangs(pf, url):
+    """A gang of two 25% pods (min-members 2) binds whole and gets two
+    workers; a gang of three (min-members 3, a 2 s timeout) whose third
+    member cannot fit binds none, and the holds its members took in
+    Permit are rolled back."""
+    c = pf.c
+    row, checks = {}, {}
+    before = pf.available()
+    ann = dict(_cp_user_ann(c, 25, 1 << 30, c.QOS_LOW), **{
+        c.ANN_WORKLOAD: "gang-ok", c.ANN_GANG_ENABLED: "true", c.ANN_GANG_MIN_MEMBERS: "2",
+        c.ANN_GANG_TIMEOUT: str(CP_GANG_TIMEOUT_S)})
+    t0 = time.monotonic()
+    keys = [pf.submit(f"gang-ok-{i}", ann) for i in range(2)]
+    _cp_wait(lambda: all(k in pf.bound for k in keys), "the gang bound")
+    row["gang_bind_ms"] = (max(pf.bound[k] for k in keys) - t0) * 1e3
+    workers = [_cp_wait(lambda k=k: _cp_worker(url, k), f"{k}'s worker") for k in keys]
+    row["gang_workers_ms"] = (time.monotonic() - t0) * 1e3
+    checks["gang_bound_whole"] = len(workers) == 2 and bool(_cp_wait(lambda: all(
+        pf.alloc.allocation(k) is not None and not pf.alloc.allocation(k).assumed
+        for k in keys), "the gang's allocations committed", timeout=10))
+    for k in keys:
+        pf.delete(k)
+    for k, w in zip(keys, workers):
+        _cp_wait(lambda k=k, w=w: _cp_gone(url, k, w["status"]["env"]["TPF_SHM_PATH"]),
+                 f"{k}'s worker removed")
+
+    ann = dict(_cp_user_ann(c, 25, 1 << 30, c.QOS_LOW), **{
+        c.ANN_WORKLOAD: "gang-short", c.ANN_GANG_ENABLED: "true",
+        c.ANN_GANG_MIN_MEMBERS: "3", c.ANN_GANG_TIMEOUT: str(CP_GANG_TIMEOUT_S)})
+    too_big = dict(ann, **{c.ANN_HBM_REQUEST: str(int(
+        pf.alloc.chips()[0].available().hbm_bytes) + (1 << 30))})
+    t0 = time.monotonic()
+    keys = [pf.submit("gang-short-0", ann), pf.submit("gang-short-1", ann),
+            pf.submit("gang-short-2", too_big)]
+    small = set(keys[:2])
+
+    def rolled_back():
+        rejected = {k for k, _ in pf.permit_rejects} & small
+        return (rejected == small and keys[2] in pf.reasons
+                and all(pf.alloc.allocation(k) is None for k in keys)
+                and not pf.sched.waiting_pods())
+    _cp_wait(rolled_back, "the short gang's holds rolled back",
+             timeout=CP_GANG_TIMEOUT_S + 10)
+    row["gang_refused_rollback_ms"] = (time.monotonic() - t0) * 1e3
+    row["gang_refused_rejects"] = sorted(r for k, r in pf.permit_rejects if k in small)
+    time.sleep(0.5)
+    checks["gang_refused_none_bound"] = (not any(k in pf.bound for k in keys)
+                                         and pf.available() == before
+                                         and all(_cp_worker(url, k) is None for k in keys))
+    for k in keys:
+        pf.delete(k)
+    pf.sync("gangs deleted")
+    return row, checks
+
+
+def _cp_preempt(pf, url, chip_name):
+    """A QoS-low pod takes all the HBM the card has left; a QoS-critical
+    pod that does not fit beside it evicts it; the agent removes the low
+    pod's worker and segment, and the critical pod's worker appears."""
+    c = pf.c
+    row = {}
+    left = pf.alloc.get_chip(chip_name).available().hbm_bytes
+    low = pf.submit("filler", _cp_user_ann(c, 25, left, c.QOS_LOW))
+    w_low = _cp_wait(lambda: _cp_worker(url, low), "the low pod's worker")
+    pf.sync("the low pod bound")
+    crit = pf.submit("critical", _cp_user_ann(c, 25, 20 << 30, c.QOS_CRITICAL))
+    _cp_wait(lambda: low in pf.evicted, "the low pod's eviction")
+    t_evict = pf.evicted[low]
+    # the operator requeues on the victim's deletion.  The eviction runs
+    # inside the critical pod's cycle, which parks the pod only after it;
+    # an activate() before that finds nothing to requeue and the pod stays
+    # parked.  Its reason is recorded once it is parked.
+    _cp_wait(lambda: "after preemption" in pf.reasons.get(crit, ""),
+             "the critical pod parked after its preemption")
+    pf.sched.activate()
+    shm_low = w_low["status"]["env"]["TPF_SHM_PATH"]
+    _cp_wait(lambda: _cp_gone(url, low, shm_low), "the low pod's worker and segment removed")
+    row["evict_to_segment_ms"] = (time.monotonic() - t_evict) * 1e3
+    w_crit = _cp_wait(lambda: _cp_worker(url, crit), "the critical pod's worker")
+    row["evict_to_critical_worker_ms"] = (time.monotonic() - t_evict) * 1e3
+    pf.sync("the critical pod bound")
+    row["victims"] = sorted(pf.evicted)
+    check = (sorted(pf.evicted) == [low] and pf.chip_ids(crit) == chip_name
+             and _cp_worker(url, low) is None and w_crit is not None
+             and pf.rs.try_get(pf.types.Pod, "filler", "default") is None)
+    return crit, w_crit, row, check
+
+
+def _cp_scale():
+    """The scheduler layer alone, on the host, with no store: 64 nodes of
+    8 h100-sxm cards, each node an NVLink clique, and 512 pods of 1-8
+    cards at 10-100% duty and mixed QoS, each admitted by the webhook and
+    given one scheduling cycle (preemption included)."""
+    from tensorfusion_tpu_torch import constants as c
+    from tensorfusion_tpu_torch.allocator import IndexAllocator, PortAllocator, TPUAllocator
+    from tensorfusion_tpu_torch.api import types as t
+    from tensorfusion_tpu_torch.api.resources import ResourceAmount
+    from tensorfusion_tpu_torch.config.chip_info import CHIP_INFO_DB, mock_chip_info
+    from tensorfusion_tpu_torch.scheduler import (GangManager, ICITopologyPlugin, Scheduler,
+                                                  TPUResourcesFit)
+    from tensorfusion_tpu_torch.store import ObjectStore
+    from tensorfusion_tpu_torch.webhook import PodMutator, WorkloadParser
+
+    n_nodes, per_node, n_pods = CP_SCALE
+    model = CHIP_INFO_DB[CP_GENERATION]
+    alloc = TPUAllocator()
+    nodes = [f"scale-{n:02d}" for n in range(n_nodes)]
+    for node in nodes:
+        names = [f"{node}-gpu{i}" for i in range(per_node)]
+        for i, name in enumerate(names):
+            chip = t.TPUChip.new(name)
+            st = chip.status
+            st.phase, st.used_by = c.PHASE_RUNNING, c.CHIP_USED_BY_TPU_FUSION
+            st.capacity = ResourceAmount(tflops=model.bf16_tflops, duty_percent=100.0,
+                                         hbm_bytes=float(model.hbm_bytes))
+            st.available = st.capacity
+            st.generation, st.vendor, st.node_name = CP_GENERATION, c.VENDOR_NVIDIA, node
+            st.pool, st.host_index, st.mesh = CP_POOL, i, t.MeshCoords(x=i)
+            st.capabilities = {"soft_isolation": True}
+            st.ici_links = [t.ICILink(peer_chip_id=o, peer_index=j, kind="ici", hops=1,
+                                      gbps=model.ici_gbps)
+                            for j, o in enumerate(names) if o != name]
+            alloc.upsert_chip(chip)
+    store = ObjectStore()
+    mutator = PodMutator(store, WorkloadParser(store, chip_models=mock_chip_info(),
+                                               default_pool=CP_POOL))
+    pods, bound, evicted = {}, {}, []
+
+    def evict(pod):
+        evicted.append(pod.key())
+        alloc.dealloc(pod.key())
+        bound.pop(pod.key(), None)
+        pods[pod.key()].spec.node_name = ""
+
+    sched = Scheduler(nodes_fn=lambda: nodes, bind_fn=lambda p, n: bound.update({p.key(): n}))
+    gang = GangManager()
+    gang.bind_scheduler(sched)
+    sched.register(TPUResourcesFit(
+        alloc, gang=gang, ports=PortAllocator(), indices=IndexAllocator(), evict=evict,
+        pods_on_node=lambda node: [p for p in pods.values() if p.spec.node_name == node]))
+    sched.register(ICITopologyPlugin())
+    rng = random.Random(CP_SCALE_SEED)
+    cycles, t0 = [], time.perf_counter()
+    for i in range(n_pods):
+        pod = t.Pod.new(f"s{i}", namespace="scale")
+        pod.metadata.annotations.update(_cp_user_ann(
+            c, rng.randint(10, 100), rng.randint(1, 40) << 30, rng.choice(c.QOS_LEVELS),
+            **{c.ANN_CHIP_COUNT: str(rng.randint(1, per_node))}))
+        pod.spec.containers = [t.Container(name="main")]
+        pod = mutator.handle(pod)
+        pods[pod.key()] = pod
+        t1 = time.perf_counter()
+        if sched.schedule_one(pod).ok:
+            pod.spec.node_name = bound[pod.key()]
+        cycles.append(time.perf_counter() - t1)
+    wall = time.perf_counter() - t0
+    q = _quantiles_ms(cycles)
+    multi = [k for k in bound if int(pods[k].metadata.annotations[c.ANN_CHIP_COUNT]) > 1]
+    same_node = all(len({alloc.get_chip(x).chip.status.node_name
+                         for x in alloc.allocation(k).chip_ids}) == 1 for k in multi)
+    return {"nodes": n_nodes, "cards_per_node": per_node, "pods": n_pods,
+            "bound": len(bound), "preempted": len(evicted), "multi_card_bound": len(multi),
+            "pods_per_s": n_pods / sum(cycles), "cycle_ms_p50": q["p50"],
+            "cycle_ms_p99": q["p99"], "seconds": wall, "multi_card_on_one_node": same_node}
 
 
 def phase_control_plane(torch, hardware, hv_build, limiter_lib, name, smi):
-    """The control plane, part 1, on the card: the port's state store, the
-    daemon joined to it with ``--operator-url`` over the NVML provider, the
-    card published as a TPUChip, a pod bound to the node at a 25% contract
-    turned into a worker, the unmodified Llama-3-8B tenant under that
-    worker's env (the launch hook preloaded), metrics lines in the store, a
-    restart of the store from its journal, and both pods' deletion.
-    Returns the tenant's kernel launches."""
+    """The control plane on the card: the port's state store, the daemon
+    joined to it with ``--operator-url`` over the NVML provider, the card
+    published as a TPUChip; then the platform's own path, composed here:
+    a pod with user annotations only (h100-sxm, duty 25, HBM, soft, QoS
+    low) admitted by the webhook (247.25 TFLOPs), scheduled and bound to
+    the node by the scheduler over an allocator fed the store's TPUChip,
+    and turned by the agent into a worker whose segment holds 2500 bp; the
+    unmodified Llama-3-8B tenant under that worker's env (the launch hook
+    preloaded) while an over-HBM pod and an over-quota pod are refused;
+    gangs bound whole or not at all; a preemption from a low pod's worker
+    to a critical pod's; the daemon's metrics lines in the store; a
+    restart of the store from its journal, a pod admitted and scheduled
+    after it, and a fresh allocator rebuilt from the store equal to the
+    live one; every pod deleted; and the scheduler at inventory scale on
+    the host.  Returns the tenant's kernel launches."""
+    import threading as _threading
+
     from tensorfusion_tpu_torch import constants
+    from tensorfusion_tpu_torch.allocator import TPUAllocator
     from tensorfusion_tpu_torch.api import types as api_types
     from tensorfusion_tpu_torch.hypervisor import ShmView, list_worker_segments
     from tensorfusion_tpu_torch.remote_store import RemoteStore
 
+    c = constants
     t_phase = time.perf_counter()
     work = WORK / "control_plane"
     shutil.rmtree(work, ignore_errors=True)
@@ -4114,7 +4478,7 @@ def phase_control_plane(torch, hardware, hv_build, limiter_lib, name, smi):
     store_proc, port = _start_statestore(work)
     store_url = f"http://127.0.0.1:{port}"
     rs = RemoteStore(store_url, token=CP_TOKEN, timeout_s=30)
-    daemon = None
+    daemon = pf = None
     try:
         _cp_wait(rs.ping, "the state store's healthz", procs=[("the state store", store_proc)])
         t0 = time.monotonic()
@@ -4125,11 +4489,11 @@ def phase_control_plane(torch, hardware, hv_build, limiter_lib, name, smi):
         chips = _cp_wait(lambda: rs.list(api_types.TPUChip), "the card's TPUChip", procs=procs)
         row["chip_published_s"] = time.monotonic() - t0
         chip, dev = chips[0], _api(url, "/api/v1/devices")[0]["info"]
-        st = chip.status
+        chip_name, st = chip.metadata.name, chip.status
         node = rs.get(api_types.Node, CP_NODE)
         tnode = rs.get(api_types.TPUNode, CP_NODE)
         total = torch.cuda.get_device_properties(0).total_memory
-        row["chip"] = {"name": chip.metadata.name, "generation": st.generation,
+        row["chip"] = {"name": chip_name, "generation": st.generation,
                        "vendor": st.vendor, "used_by": st.used_by, "phase": st.phase,
                        "pool": st.pool, "tflops": st.capacity.tflops,
                        "duty_percent": st.capacity.duty_percent,
@@ -4140,22 +4504,44 @@ def phase_control_plane(torch, hardware, hv_build, limiter_lib, name, smi):
                        "tpunode_phase": tnode.status.phase,
                        "hypervisor_url": tnode.status.hypervisor_url}
         checks["inventory"] = (
-            len(chips) == 1 and chip.metadata.name == dev["chip_id"]
+            len(chips) == 1 and chip_name == dev["chip_id"]
             and (st.generation, st.vendor, st.used_by, st.phase, st.pool) == (
-                "h100-sxm", "nvidia", constants.CHIP_USED_BY_TPU_FUSION,
-                constants.PHASE_RUNNING, CP_POOL)
+                CP_GENERATION, c.VENDOR_NVIDIA, c.CHIP_USED_BY_TPU_FUSION,
+                c.PHASE_RUNNING, CP_POOL)
             and (st.capacity.tflops, st.capacity.duty_percent) == (peak / 1e12, 100.0)
             and st.capacity.hbm_bytes == dev["hbm_bytes"] and abs(dev["hbm_bytes"] / total - 1)
             < 0.05 and [st.mesh.x, st.mesh.y, st.mesh.z] == list(dev["mesh"])
-            and node.status.phase == constants.PHASE_RUNNING and tnode.spec.pool == CP_POOL
+            and node.status.phase == c.PHASE_RUNNING and tnode.spec.pool == CP_POOL
             and tnode.status.hypervisor_url == url and tnode.status.hypervisor_ready)
 
-        t_bound = time.monotonic()
-        rs.create(_cp_pod(api_types, constants, "tenant", chip.metadata.name, CP_TFLOPS,
-                          NODE_HBM_BYTES))
-        worker = _cp_wait(lambda: _cp_worker(url, "default/tenant"), "the pod's worker",
-                          procs=procs)
-        row["pod_to_segment_ms"] = (time.monotonic() - t_bound) * 1e3
+        pf = _Platform(rs, chips, lambda: [n.metadata.name for n in rs.list(api_types.Node)
+                                           if n.status.phase == c.PHASE_RUNNING])
+        rtt = []
+        for _ in range(10):
+            t1 = time.perf_counter()
+            rs.get(api_types.TPUChip, chip_name)
+            rtt.append(time.perf_counter() - t1)
+        row["store_get_ms"] = _quantiles_ms(rtt)
+        pf.sched.start()
+        tenant = pf.submit("tenant", _cp_user_ann(c, CP_DUTY, NODE_HBM_BYTES, c.QOS_LOW))
+        _cp_wait(lambda: tenant in pf.bound or pf.reasons.get(tenant), "the tenant pod bound",
+                 procs=procs)
+        if tenant not in pf.bound:
+            raise RuntimeError(f"the tenant pod was not scheduled: {pf.reasons[tenant]}")
+        worker = _cp_wait(lambda: _cp_worker(url, tenant), "the pod's worker", procs=procs)
+        row["pod_to_segment_ms"] = (time.monotonic() - pf.bound[tenant]) * 1e3
+        stored = rs.get(api_types.Pod, "tenant", "default")
+        ann = stored.metadata.annotations
+        row["admitted"] = {k.split("/")[-1]: ann.get(k) for k in (
+            c.ANN_TFLOPS_REQUEST, c.ANN_DUTY_REQUEST, c.ANN_HBM_REQUEST, c.ANN_QOS,
+            c.ANN_ISOLATION, c.ANN_CHIP_IDS, c.ANN_POOL, c.ANN_WORKLOAD)}
+        row["admitted"]["priority"] = stored.spec.priority
+        row["admitted"]["node"] = stored.spec.node_name
+        checks["admitted_and_bound"] = (
+            ann[c.ANN_TFLOPS_REQUEST] == CP_TFLOPS and ann[c.ANN_CHIP_IDS] == chip_name
+            and stored.spec.node_name == CP_NODE and stored.status.phase == c.PHASE_RUNNING
+            and stored.spec.scheduler_name == c.SCHEDULER_NAME)
+        pf.sync("the tenant bound")
         env = worker["status"]["env"]
         view = ShmView(env["TPF_SHM_PATH"])
         try:
@@ -4163,10 +4549,13 @@ def phase_control_plane(torch, hardware, hv_build, limiter_lib, name, smi):
             row["segment"] = {"chip_id": quota.chip_id, "duty_limit_bp": quota.duty_limit_bp,
                               "hbm_limit_bytes": quota.hbm_limit_bytes}
             checks["contract"] = (quota.chip_id, quota.duty_limit_bp, quota.hbm_limit_bytes) \
-                == (chip.metadata.name, 2500, NODE_HBM_BYTES)
-            calls, stopped, check, seg, pid = _cp_tenant(env, work / "tenant", view)
+                == (chip_name, 2500, NODE_HBM_BYTES)
+            calls, stopped, check, seg, pid, (refusals, refusal_checks) = _cp_tenant(
+                env, work / "tenant", view, lambda: _cp_refusals(pf, url, chip_name))
         finally:
             view.close()
+        row["refusals"] = refusals
+        checks.update(refusal_checks)
         wall = calls[-1]["t1"] - calls[0]["t1"]
         device_s = (calls[-1]["hook"]["device_us"] - calls[0]["hook"]["device_us"]) / 1e6
         flash = [l["flash"] for l in calls]
@@ -4188,6 +4577,21 @@ def phase_control_plane(torch, hardware, hv_build, limiter_lib, name, smi):
         row["metrics_lines"] = len(lines)
         checks["metrics"] = any(CP_NODE in l for l in lines)
 
+        gang_row, gang_checks = _cp_gangs(pf, url)
+        row.update(gang_row)
+        checks.update(gang_checks)
+
+        # the tenant's work is done: its pod goes, and the card is free for
+        # the preemption
+        pf.delete(tenant)
+        _cp_wait(lambda: _cp_gone(url, tenant, env["TPF_SHM_PATH"]),
+                 "the tenant's worker removed", procs=procs)
+        crit, w_crit, pre_row, checks["preemption"] = _cp_preempt(pf, url, chip_name)
+        row.update(pre_row)
+        checks["critical_contract"] = (
+            w_crit["spec"]["devices"][0]["duty_percent"] == 25.0
+            and w_crit["spec"]["qos"] == c.QOS_CRITICAL)
+
         t_kill = time.monotonic()
         store_proc.kill()
         store_proc.wait()
@@ -4197,26 +4601,56 @@ def phase_control_plane(torch, hardware, hv_build, limiter_lib, name, smi):
         row["store_restart_s"] = time.monotonic() - t_kill
         survived = {kind.KIND: rs.try_get(kind, key, ns) is not None for kind, key, ns in (
             (api_types.Node, CP_NODE, ""), (api_types.TPUNode, CP_NODE, ""),
-            (api_types.TPUChip, chip.metadata.name, ""), (api_types.Pod, "tenant", "default"))}
-        rs.create(_cp_pod(api_types, constants, "second", chip.metadata.name, "98.9", 1 << 30))
-        _cp_wait(lambda: _cp_worker(url, "default/second"), "the second pod's worker",
-                 procs=procs)
+            (api_types.TPUChip, chip_name, ""), (api_types.Pod, "critical", "default"))}
+        second = pf.submit("second", _cp_user_ann(c, 10, 1 << 30, c.QOS_LOW))
+        _cp_wait(lambda: _cp_worker(url, second), "the second pod's worker", procs=procs)
         row["restart_recover_s"] = time.monotonic() - t_kill
         row["survived_restart"] = survived
         checks["restart"] = all(survived.values())
+        pf.sync("after the restart")
+        rebuilt = TPUAllocator()
+        for ch in rs.list(api_types.TPUChip):
+            rebuilt.upsert_chip(ch)
+        restored = rebuilt.reconcile([p for p in rs.list(api_types.Pod) if p.spec.node_name])
+        rebuilt_avail = {s.chip.name: dataclasses.asdict(s.available()) for s in rebuilt.chips()}
+        row["rebuilt_allocator"] = {"pods": restored, "available": rebuilt_avail[chip_name]}
+        live = pf.available()
+        checks["rebuilt_allocator"] = (
+            restored == 2 and rebuilt_avail.keys() == live.keys()
+            and all(math.isclose(rebuilt_avail[k][f], live[k][f], abs_tol=1e-6)
+                    for k in live for f in live[k])
+            and sorted(rebuilt.get_chip(chip_name).holders) == sorted([crit, second]))
 
-        for pod in ("tenant", "second"):
-            rs.delete(api_types.Pod, pod, "default")
+        submit_ms = sorted((pf.bound[k] - pf.submitted[k]) * 1e3 for k in pf.bound)
+        row["submit_to_bound_ms"] = {"p50": submit_ms[len(submit_ms) // 2],
+                                     "max": submit_ms[-1], "pods": len(submit_ms)}
+        row["bind_conflicts"] = pf.bind_conflicts
+        for key in (crit, second):
+            pf.delete(key)
         _cp_wait(lambda: not _api(url, "/api/v1/workers"), "the workers' removal", procs=procs)
+        pf.sync("every pod deleted")
         left = list_worker_segments(str(work / "shm"))
-        checks["reclaimed"] = (not left and rs.get(api_types.TPUChip, chip.metadata.name)
-                               .status.phase == constants.PHASE_RUNNING)
+        end = rs.get(api_types.TPUChip, chip_name).status
+        checks["reclaimed"] = (not left and end.phase == c.PHASE_RUNNING
+                               and end.available == end.capacity and not end.running_apps
+                               and end.generation == CP_GENERATION
+                               and end.capacity.tflops == peak / 1e12)
+    except RuntimeError as e:
+        raise RuntimeError(f"{e}\nthe daemon's log:\n{_tail(work / 'daemon.log')}\n"
+                           f"the state store's log:\n{_tail(work / 'statestore.log')}") from None
     finally:
+        if pf is not None:
+            pf.sched.stop()
         rs.close()
         if daemon is not None:
             _stop(daemon)
         _stop(store_proc)
-    checks["stopped"] = daemon.poll() is not None and store_proc.poll() is not None
+    checks["stopped"] = (daemon.poll() is not None and store_proc.poll() is not None
+                         and not any(t.name in ("tpf-sched", "tpf-sched-permit")
+                                     for t in _threading.enumerate()))
+    row["scale"] = _cp_scale()
+    checks["scale"] = (row["scale"]["seconds"] < 30 and row["scale"]["bound"] > 0
+                       and row["scale"]["multi_card_on_one_node"])
     emit("control_plane", **row, checks=checks, nvidia_smi=smi,
          seconds=time.perf_counter() - t_phase)
     if not all(checks.values()):
@@ -4278,6 +4712,12 @@ def main() -> int:
     name, smi = phase_device(torch, build, hardware)
     rates = hardware.peak_rates(name)
     limiter_lib = phase_build(torch, build, fa, hv_build)
+    if sys.argv[1:2] == ["--control-plane"]:
+        for i in range(int(sys.argv[2])):
+            _memory(torch, f"control_plane {i + 1}", t0)
+            phase_control_plane(torch, hardware, hv_build, limiter_lib, name, smi)
+        _memory(torch, "end", t0)
+        return 0
     rows = {"flash_attn_fwd": phase_kernels(torch, fa, rates)}
     rows.update(phase_bwd_kernels(torch, fa, rates))
     torch.cuda.empty_cache()

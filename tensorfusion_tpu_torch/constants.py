@@ -1,9 +1,10 @@
 """Environment names the port's client, remote worker, tracer, profiler
 and node agent read, the QoS ladder its serving engine and dispatcher
 schedule by, the node agent's isolation modes and worker phases, and the
-pod annotations and pool defaults its control plane reads (the same
-contract as the JAX package's; see tensorfusion_tpu/constants.py: these
-strings cross the wire between the two).  The one name that differs is
+pod annotations, labels, port ranges and pool defaults its control plane
+(node agent, admission webhook, scheduler and allocator) reads and stamps
+(the same contract as the JAX package's; see tensorfusion_tpu/constants.py:
+these strings cross the wire between the two).  The one name that differs is
 the visible-device variable: CUDA's."""
 
 import os
@@ -22,6 +23,58 @@ ANN_QOS = f"{DOMAIN}/qos"
 ANN_ISOLATION = f"{DOMAIN}/isolation"
 ANN_CHIP_IDS = f"{DOMAIN}/chip-ids"              # comma-joined allocated ids
 ANN_PARTITION_NAME = f"{DOMAIN}/partition"       # template id, partitioned mode
+
+#: the scheduler a mutated pod is routed to
+SCHEDULER_NAME = f"{DOMAIN_PREFIX}-scheduler"
+
+LABEL_MANAGED_BY = f"{DOMAIN}/managed-by"
+LABEL_ENABLED = f"{DOMAIN}/enabled"
+LABEL_HOST_PORT = f"{DOMAIN}/host-port"          # value "auto" requests one
+LABEL_HOST_PORT_AUTO = "auto"
+
+#: the user's request annotations (parsed by admission)
+ANN_POOL = f"{DOMAIN}/pool"
+ANN_WORKLOAD = f"{DOMAIN}/workload"
+ANN_WORKLOAD_PROFILE = f"{DOMAIN}/workload-profile"
+ANN_ENABLED_REPLICAS = f"{DOMAIN}/enabled-replicas"
+ANN_TFLOPS_LIMIT = f"{DOMAIN}/tflops-limit"
+ANN_HBM_LIMIT = f"{DOMAIN}/hbm-limit"
+ANN_DUTY_LIMIT = f"{DOMAIN}/duty-percent-limit"
+ANN_CHIP_COUNT = f"{DOMAIN}/chip-count"
+ANN_CHIP_INDICES = f"{DOMAIN}/chip-indices"
+ANN_CHIP_GENERATION = f"{DOMAIN}/generation"     # e.g. "v5e", "h100-sxm"
+ANN_VENDOR = f"{DOMAIN}/vendor"
+ANN_IS_LOCAL_TPU = f"{DOMAIN}/is-local-tpu"
+ANN_DEDICATED_CHIP = f"{DOMAIN}/dedicated-chip"
+ANN_DEDICATED_WORKER = f"{DOMAIN}/dedicated-worker"
+ANN_EMBEDDED_WORKER = f"{DOMAIN}/embedded-worker"
+ANN_SIDECAR_WORKER = f"{DOMAIN}/sidecar-worker"
+ANN_INJECT_CONTAINER = f"{DOMAIN}/inject-container"
+ANN_EVICTION_PROTECTION = f"{DOMAIN}/eviction-protection"
+ANN_EXCLUDED_NODES = f"{DOMAIN}/excluded-nodes"  # defrag/migration rebinds
+ANN_AUTOSCALE = f"{DOMAIN}/autoscale"
+ANN_AUTOSCALE_TARGET = f"{DOMAIN}/autoscale-target"
+ANN_PORT_NUMBER = f"{DOMAIN}/port-number"
+
+#: what the webhook, the scheduler and the allocator stamp
+ANN_CONTAINER_CHIP_COUNT = f"{DOMAIN}/container-chip-count"
+ANN_POD_INDEX = f"{DOMAIN}/index"
+ANN_PARTITION_IDS = f"{DOMAIN}/partition-ids"    # json: chip id -> instance id
+ANN_POD_COUNTER_KEY = f"{DOMAIN}/pod-counter-key"
+#: pod-lifecycle trace context, ``trace_id:span_id``, stamped by admission
+ANN_TRACE_CONTEXT = f"{DOMAIN}/trace"
+
+#: gang scheduling (scheduler/gang.py)
+ANN_GANG_ENABLED = f"{DOMAIN}/gang-enabled"
+ANN_GANG_MIN_MEMBERS = f"{DOMAIN}/gang-min-members"
+ANN_GANG_TIMEOUT = f"{DOMAIN}/gang-timeout"
+ANN_GANG_DESIRED_MEMBERS = f"{DOMAIN}/gang-desired-members"
+ANN_GANG_REQUIRED_MEMBERS = f"{DOMAIN}/gang-required-members"
+ANN_GANG_GROUP_KEY = f"{DOMAIN}/gang-group-key"
+
+#: host-port ranges of the port allocator
+NODE_PORT_RANGE = (40000, 42000)
+CLUSTER_PORT_RANGE = (42000, 62000)
 
 ENV_SHM_PATH = "TPF_SHM_PATH"                  # worker segment path
 ENV_HYPERVISOR_URL = "TPF_HYPERVISOR_URL"      # node-local bootstrap endpoint
@@ -62,6 +115,10 @@ ENV_LIVE_HBM_INTERVAL = "TPF_LIVE_HBM_S"       # live-memory sampling period
 ENV_LD_PRELOAD = "LD_PRELOAD"
 ENV_DEVICE_INDEX = "TPF_DEVICE_INDEX"
 ENV_PEAK_MFLOPS = "TPF_PEAK_MFLOPS"
+#: the reference client's metering switch, which the admission webhook
+#: injects as the reference's does.  Nothing in the port reads it: a
+#: worker's tenant is metered by the launch hook the node agent preloads
+ENV_VTPU_ENABLED = "TPF_VTPU"
 
 DEFAULT_HYPERVISOR_PORT = 8000
 
@@ -86,6 +143,9 @@ PHASE_UNKNOWN = "Unknown"
 PHASE_DESTROYING = "Destroying"
 PHASE_MIGRATING = "Migrating"
 
+#: the vendor a TPUChip of the NVML provider names
+VENDOR_NVIDIA = "nvidia"
+
 CHIP_USED_BY_TPU_FUSION = "tpu-fusion"
 CHIP_USED_BY_EXTERNAL_PLUGIN = "external-device-plugin"
 
@@ -107,6 +167,7 @@ QOS_LOW = "low"
 QOS_MEDIUM = "medium"
 QOS_HIGH = "high"
 QOS_CRITICAL = "critical"
+QOS_LEVELS = (QOS_LOW, QOS_MEDIUM, QOS_HIGH, QOS_CRITICAL)
 DEFAULT_QOS = QOS_MEDIUM
 
 #: relative service shares per QoS class: the serving engine admits the

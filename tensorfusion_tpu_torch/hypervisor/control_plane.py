@@ -46,7 +46,7 @@ log = logging.getLogger("tpf.hypervisor.control_plane")
 
 #: the vendor a TPUChip names, by the provider's platform; the reference
 #: publishes every chip as "mock-tpu"
-VENDOR_BY_PLATFORM = {"gpu": "nvidia"}
+VENDOR_BY_PLATFORM = {"gpu": constants.VENDOR_NVIDIA}
 DEFAULT_VENDOR = "mock-tpu"
 
 

@@ -90,6 +90,9 @@ class WorkerController:
         self._lock = threading.RLock()
         # guarded by: _lock
         self._workers: Dict[str, TrackedWorker] = {}
+        # keys being torn down by remove_worker (still in _workers)
+        # guarded by: _lock
+        self._removing: set = set()
         # held by a whole tick and by a freeze or resume, so that a tick
         # which read a worker as running cannot push its quota after the
         # worker was frozen
@@ -163,24 +166,35 @@ class WorkerController:
         return tracked
 
     def remove_worker(self, worker_key: str) -> None:
+        """Tear a worker down.  It leaves the controller's map (``get``,
+        ``list`` and the API's worker list) only once its segment is gone,
+        so that a reader that no longer sees the worker finds no segment
+        of it either."""
         with self._lock:
-            tracked = self._workers.pop(worker_key, None)
-        if tracked is None:
-            return
-        if tracked.view is not None:
-            tracked.view.close()
-        if tracked.shm_path:
-            try:
-                ns, pod = worker_key.split("/", 1)
-                self.limiter.remove_worker(ns, pod)
-            except LimiterError:
-                log.warning("shm segment for %s already gone", worker_key)
-            _unlink_side_file(tracked.shm_path)
-        self.erl.forget(worker_key)
-        for card in self._cards.values():
-            for key in [k for k in card.charged if k[0] == worker_key]:
-                del card.charged[key]
-        self.allocator.release(worker_key)
+            tracked = self._workers.get(worker_key)
+            if tracked is None or worker_key in self._removing:
+                return
+            self._removing.add(worker_key)
+        try:
+            if tracked.view is not None:
+                tracked.view.close()
+            if tracked.shm_path:
+                try:
+                    ns, pod = worker_key.split("/", 1)
+                    self.limiter.remove_worker(ns, pod)
+                except LimiterError:
+                    log.warning("shm segment for %s already gone", worker_key)
+                _unlink_side_file(tracked.shm_path)
+            self.erl.forget(worker_key)
+            for card in self._cards.values():
+                for key in [k for k in card.charged if k[0] == worker_key]:
+                    del card.charged[key]
+            self.allocator.release(worker_key)
+        finally:
+            with self._lock:
+                if self._workers.get(worker_key) is tracked:
+                    del self._workers[worker_key]
+                self._removing.discard(worker_key)
         log.info("worker %s removed", worker_key)
 
     def get(self, worker_key: str) -> Optional[TrackedWorker]:
@@ -478,9 +492,15 @@ class WorkerController:
     # -- orphan cleanup (controller.go:425-484 analog) --------------------
 
     def _cleanup_orphan_shm(self) -> None:
+        """Remove the segments no tracked worker owns.  The directory is
+        listed before the map is read: a worker enters the map before its
+        segment is made, so every segment of the listing whose worker is
+        being added is known by then.  Read the other way round, a segment
+        made between the two reads was taken for an orphan."""
+        segments = list_worker_segments(self.shm_base)
         with self._lock:
             known = {w.shm_path for w in self._workers.values() if w.shm_path}
-        for ns, pod, path in list_worker_segments(self.shm_base):
+        for ns, pod, path in segments:
             if path not in known:
                 try:
                     self.limiter.remove_worker(ns, pod)

@@ -1,6 +1,5 @@
 """tpftrace core: dependency-free span recorder with context propagation
-(the port's copy of ``tensorfusion_tpu/tracing/core.py``, without the
-control plane's pod-annotation helper).
+(the port's copy of ``tensorfusion_tpu/tracing/core.py``).
 
 The reference platform's observability stops at per-series metrics (the
 implicit metrics.go -> Grafana contract PAPER.md's survey notes), so
@@ -32,6 +31,7 @@ Span names follow the reference's catalog (docs/tracing.md).
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import itertools
 import os
 import threading
@@ -292,3 +292,22 @@ class Tracer:
                 "dropped_unsampled": self._dropped_unsampled,
                 "ring": ring}
 
+
+
+def pod_trace_context(pod) -> Dict[str, Any]:
+    """Propagated trace context for a pod's lifecycle trace.
+
+    The admission webhook stamps ``tpu-fusion.ai/trace`` =
+    ``trace_id:span_id`` on the pod; scheduler/bind spans parent under
+    it.  A pod that skipped admission (controller-created workers, sim
+    traffic) still joins ONE stable trace per pod: the trace id is
+    derived from the pod key, so every stage of its lifecycle lands on
+    the same timeline without any store write."""
+    raw = pod.metadata.annotations.get(constants.ANN_TRACE_CONTEXT, "")
+    if raw:
+        trace_id, _, span_id = raw.partition(":")
+        if trace_id:
+            return {"trace_id": trace_id, "span_id": span_id,
+                    "sampled": True}
+    digest = hashlib.sha1(pod.key().encode()).hexdigest()[:12]
+    return {"trace_id": f"pod-{digest}", "span_id": "", "sampled": True}

@@ -849,6 +849,104 @@ def test_daemon_joins_a_store_and_serves_a_pod(fake_nvml, limiter_lib, tmp_path,
     assert not left, left
 
 
+def _bind_fn(rs, c):
+    """The reference operator's bind (operator.py ``_bind_pod``): a
+    version-checked update that sets the node, merges the stamped
+    annotations and marks the pod Running, retried on conflict."""
+    def bind(pod, node):
+        for attempt in range(5):
+            current = rs.get(port_types.Pod, pod.metadata.name, pod.metadata.namespace).thaw()
+            current.spec.node_name = node
+            current.metadata.annotations.update(pod.metadata.annotations)
+            current.status.phase = c.PHASE_RUNNING
+            current.status.host_ip = node
+            try:
+                rs.update(current, check_version=True)
+                return
+            except port_store.ConflictError:
+                if attempt == 4:
+                    raise
+    return bind
+
+
+def test_a_pod_submitted_through_webhook_and_scheduler_reaches_the_agent(
+        fake_nvml, limiter_lib, tmp_path, monkeypatch):
+    """The platform's own path over the fake NVML: the port's webhook
+    admits a pod with user annotations only (h100-sxm, duty 25, HBM, soft,
+    QoS low), the port's scheduler binds it to the node over an allocator
+    fed the store's TPUChips, and the node agent turns it into a worker
+    whose segment holds 2500 bp.  The allocator's availability survives
+    the agent's next inventory write, and deleting the pod frees both."""
+    from tensorfusion_tpu_torch.allocator import IndexAllocator, PortAllocator, TPUAllocator
+    from tensorfusion_tpu_torch.config.chip_info import mock_chip_info
+    from tensorfusion_tpu_torch.scheduler import (GangManager, ICITopologyPlugin, Scheduler,
+                                                  TPUResourcesFit)
+    from tensorfusion_tpu_torch.webhook import PodMutator, WorkloadParser
+
+    c = constants
+    _nvml_env(monkeypatch, fake_nvml)
+    server = port_statestore.StateStoreServer(port_store.ObjectStore(), token="sekrit")
+    server.start()
+    daemon = _daemon(tmp_path, limiter_lib, server.url, "admit")
+    rs = port_remote.RemoteStore(server.url, token="sekrit")
+    try:
+        daemon.start()
+        chips = _wait(lambda: len(rs.list(port_types.TPUChip)) == 2
+                      and rs.list(port_types.TPUChip), desc="chips published")
+        alloc = TPUAllocator(store=rs)
+        for chip in chips:
+            alloc.upsert_chip(chip)
+        gang = GangManager()
+        mutator = PodMutator(rs, WorkloadParser(rs, chip_models=mock_chip_info(),
+                                                default_pool="pool-h100"))
+        sched = Scheduler(nodes_fn=lambda: [n.metadata.name for n in rs.list(port_types.Node)
+                                            if n.status.phase == c.PHASE_RUNNING],
+                          bind_fn=_bind_fn(rs, c))
+        gang.bind_scheduler(sched)
+        sched.register(TPUResourcesFit(alloc, gang=gang, ports=PortAllocator(),
+                                       indices=IndexAllocator()))
+        sched.register(ICITopologyPlugin())
+
+        pod = port_types.Pod.new("tenant", namespace="default")
+        pod.metadata.annotations.update({
+            c.ANN_CHIP_GENERATION: "h100-sxm", c.ANN_DUTY_REQUEST: "25",
+            c.ANN_HBM_REQUEST: str(8 << 30), c.ANN_ISOLATION: c.ISOLATION_SOFT,
+            c.ANN_QOS: c.QOS_LOW})
+        pod.spec.containers = [port_types.Container(name="main")]
+        pod = rs.create(mutator.handle(pod)).thaw()
+        assert pod.metadata.annotations[c.ANN_TFLOPS_REQUEST] == "247.25"
+        assert sched.schedule_one(pod).ok
+        stored = rs.get(port_types.Pod, "tenant", "default")
+        chip_id = stored.metadata.annotations[c.ANN_CHIP_IDS]
+        assert stored.spec.node_name == "gpu-node-0" and chip_id in {
+            ch.metadata.name for ch in chips}
+        assert stored.status.phase == c.PHASE_RUNNING
+        tracked = _wait(lambda: (lambda w: w if w is not None and c.ENV_SHM_PATH
+                                 in w.status.env else None)(daemon.workers.get("default/tenant")),
+                        desc="worker")
+        dev = port_hv.ShmView(tracked.shm_path).read().devices[0]
+        assert (dev.chip_id, dev.duty_limit_bp, dev.hbm_limit_bytes) == (chip_id, 2500, 8 << 30)
+
+        # the allocator's fields and the agent's: neither reverts the other
+        assert alloc.sync_to_store() == 1
+        daemon.backend.publish_chips()
+        st = rs.get(port_types.TPUChip, chip_id).status
+        assert st.available.tflops == pytest.approx(989.0 - 247.25)
+        assert st.available.hbm_bytes == st.capacity.hbm_bytes - (8 << 30)
+        assert st.running_apps == ["default/tenant"] and st.generation == "h100-sxm"
+
+        rs.delete(port_types.Pod, "tenant", "default")
+        alloc.dealloc("default/tenant")
+        _wait(lambda: daemon.workers.get("default/tenant") is None, desc="worker removed")
+        assert alloc.sync_to_store() == 1
+        st = rs.get(port_types.TPUChip, chip_id).status
+        assert st.available == st.capacity and st.running_apps == []
+    finally:
+        rs.close()
+        daemon.stop()
+        server.stop()
+
+
 def test_daemon_survives_a_store_restart(fake_nvml, limiter_lib, tmp_path, monkeypatch):
     """The store stops and comes back on its port from its journal: the
     agent's watch resets, its objects are still there, and a pod created

@@ -6,6 +6,7 @@ cleanup, the HTTP API, the single-node backend and the daemon.
 """
 
 import dataclasses
+import importlib
 import json
 import os
 import socket
@@ -640,6 +641,29 @@ def test_frozen_workers_refused_charges_are_not_hunger(stacks, clock):
     clock.advance(0.1)
     s.workers.tick()
     assert s.workers.erl.share("ns/hi", 0) == share
+
+
+def test_orphan_cleanup_keeps_a_segment_made_while_it_runs(stacks, monkeypatch):
+    """An agent with no worker cleans orphan segments on every tick.  A
+    worker added while that runs, its segment made between the cleanup's
+    listing of the directory and its reading of the worker map, keeps its
+    segment."""
+    s = stacks["port"]
+    worker_module = importlib.import_module("tensorfusion_tpu_torch.hypervisor.worker")
+    chip = s.devices.devices()[0].info.chip_id
+    listing = worker_module.list_worker_segments
+    added = []
+
+    def listed(base):
+        if not added:
+            added.append(s.workers.add_worker(_spec(port, "new", chip)))
+        return listing(base)
+
+    monkeypatch.setattr(worker_module, "list_worker_segments", listed)
+    s.workers.tick()
+    assert added and os.path.exists(s.workers.get("ns/new").shm_path)
+    s.workers.tick()
+    assert os.path.exists(s.workers.get("ns/new").shm_path)
 
 
 def test_a_freeze_waits_for_the_tick_in_flight(stacks, clock, monkeypatch):
