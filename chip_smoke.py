@@ -16,6 +16,14 @@ width (random weights from fixed seeds), each with the kernel launch
 counts set to 0 just before it and read just after (a tenant's, in its
 own processes, count from 0 at their start):
 
+- the digital twin (``twin``, before the node agent; on the host, no
+  kernel): a child (``python3 chip_smoke.py --twin DIR``) started with
+  PYTHONHASHSEED=0 runs the port's ``sim`` package, the operator's control
+  plane under simulated time: every scenario at ``small`` twice from seed
+  42, with every invariant held and equal log, trace and profile digests;
+  every campaign at ``small`` with its policies off and on, the policy arm
+  meeting its criteria with full provenance; three scenarios at
+  ``medium``; no card memory allocated;
 - the node agent (first, while this process holds almost nothing):
   provider_conformance against the NVML provider over the real NVML; the
   port's hypervisor daemon (``python -m tensorfusion_tpu_torch.hypervisor``)
@@ -26,7 +34,10 @@ own processes, count from 0 at their start):
   Llama-3-8B at 32 layers, the first metered forward bit-equal to an
   unmetered one, then the metered forward on 4 x 1024 tokens in a loop
   under the 10 Hz ERL loop, while both segments are sampled; ``hi``
-  frozen for 3 s and resumed; each segment holding exactly the hook's
+  frozen for 3 s and resumed (while it is frozen, the TUI's ``--once``
+  frame of the agent, ``python -m tensorfusion_tpu_torch.hypervisor.tui``,
+  must name the card, show ``hi`` frozen and the two segments at 25% and
+  75%); each segment holding exactly the hook's
   charges (the client, which also counts every call, charges nothing
   under the hook), the token-bucket bound, and nothing left after
   DELETE.  Its launches are the tenants' own;
@@ -36,7 +47,9 @@ own processes, count from 0 at their start):
   replay (``LlamaRunner``) and direct flash calls reach, with counts,
   and the flash output bit-equal to the same call without the hook; (b)
   tiny launches and the 32-layer forward without and with the hook, in
-  four children; (c) one raw tenant (``chip_smoke.py --tenant-raw DIR``)
+  four children, each timed alone on the card (they set up two at a time,
+  beside the probe or beside (c)'s tenant, and wait for their turn); (c)
+  one raw tenant (``chip_smoke.py --tenant-raw DIR``)
   alone for 10 s: charged device-seconds against its time in calls; (d)
   ``lo`` and ``hi`` as raw tenants under the daemon for 30 s, no freeze:
   the split of device time, NVML duty (at least 90%: the node agent
@@ -92,7 +105,9 @@ own processes, count from 0 at their start):
   its worker and segment gone; a running tenant (the remote forward's
   weights on node A's worker, called in a loop) moved by the operator's
   compaction to node B, a second agent whose card is the stand-in NVML's
-  (both workers compute on the one H100), in streaming mode: weights
+  (both workers compute on the one H100; before the move, the TUI's frame
+  of node A must name the tenant in its dispatch and profile panes), in
+  streaming mode: weights
   byte-equal and the forward bit-equal on B; then the scheduler alone,
   and the operator in this process, on the host over 64 nodes of 8 cards
   and 512 pods.  Its launches are the tenant's, the remote worker's and
@@ -2683,6 +2698,20 @@ def _tenant_log(out: Path):
     return lambda **fields: calls.write(json.dumps(fields) + "\n")
 
 
+def _await_go(out: Path):
+    """In a child started held (``_held_child``: an ``out/hold`` file), once
+    it is set up: ``out/ready``, then wait for ``out/go``.  A child not held
+    goes on at once."""
+    if not (out / "hold").exists():
+        return
+    (out / "ready").touch()
+    deadline = time.monotonic() + NODE_START_TIMEOUT_S
+    while not (out / "go").exists():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{out} was never told to go")
+        time.sleep(0.05)
+
+
 HOOK_FIELDS = ("launches", "charges", "charged_mflops", "device_us", "blocked_us",
                "hbm_charged_bytes", "hbm_denied", "captured", "graph_launches", "windows",
                "untimed", "unwindowed")
@@ -2782,7 +2811,8 @@ def tenant_main(out: Path) -> int:
 def tenant_raw_main(out: Path) -> int:
     """An unmodified tenant (``phase_intercept``): the Llama-3-8B forward in
     a loop, in plain torch, never importing the client runtime; only the
-    preloaded launch hook meters it."""
+    preloaded launch hook meters it.  Started held, it loops only once told
+    to (``_await_go``)."""
     import os
 
     record = _tenant_log(out)
@@ -2799,6 +2829,7 @@ def tenant_raw_main(out: Path) -> int:
     record(check={"client_runtime_imported": "tensorfusion_tpu_torch.client.runtime"
                   in sys.modules, "config": {"dim": cfg.dim, "n_layers": cfg.n_layers},
                   "shape": list(NODE_SHAPE), "peak_mflops": settings["peak_mflops"]})
+    _await_go(out)
     _tenant_loop(out, record, lambda: llama.forward(params, tokens, cfg), torch, ops, hook)
 
 
@@ -2870,7 +2901,8 @@ def probe_main(out: Path) -> int:
 def overhead_main(out: Path) -> int:
     """``phase_intercept`` part b, in a child with or without the hook:
     host microseconds a launch of a tiny kernel, and the wall time of the
-    Llama-3-8B forward on NODE_SHAPE tokens."""
+    Llama-3-8B forward on NODE_SHAPE tokens, timed once its turn comes
+    (``_await_go``)."""
     out.mkdir(parents=True, exist_ok=True)
     import torch
 
@@ -2880,6 +2912,8 @@ def overhead_main(out: Path) -> int:
 
     hook = cuda_hook_binding.loaded()
     x = torch.zeros(1, device=DEVICE)
+    cfg, params, tokens = _tenant_model(torch, llama)
+    _await_go(out)
     for _ in range(1000):
         x.add_(1)
     torch.cuda.synchronize()
@@ -2891,7 +2925,6 @@ def overhead_main(out: Path) -> int:
         torch.cuda.synchronize()
         rounds.append((time.perf_counter() - t0) / (OVERHEAD_TINY // OVERHEAD_ROUNDS) * 1e6)
     tiny_us = min(rounds)
-    cfg, params, tokens = _tenant_model(torch, llama)
     walls = []
     for i in range(2 + OVERHEAD_CALLS):
         t0 = time.perf_counter()
@@ -3155,10 +3188,12 @@ def _tail(path, n=3000):
     return path.read_text()[-n:] if path.exists() else f"<no {path.name}>"
 
 
-def _node_window(url, provider, tenants, window_s=NODE_WINDOW_S, freeze_pod="hi"):
+def _node_window(url, provider, tenants, window_s=NODE_WINDOW_S, freeze_pod="hi",
+                 on_freeze=None):
     """``window_s`` of samples: the segments every NODE_SAMPLE_S, the API's
     workers and devices and NVML's processes every second; ``freeze_pod``
-    (if any) frozen from NODE_FREEZE_AT_S for NODE_FREEZE_S."""
+    (if any) frozen from NODE_FREEZE_AT_S for NODE_FREEZE_S, and
+    ``on_freeze()`` called once it is."""
     t_start = time.monotonic()
     samples, api_samples, freeze = [], [], {}
     next_api = t_start
@@ -3174,6 +3209,8 @@ def _node_window(url, provider, tenants, window_s=NODE_WINDOW_S, freeze_pod="hi"
             # now is what its last tick before the freeze left
             freeze["at_freeze"] = _read_segment(tenants[freeze_pod]["view"])
             freeze["launches_at_freeze"] = freeze["at_freeze"]["launches"]
+            if on_freeze is not None:
+                on_freeze()
         elif "t_resume" not in freeze and "t_freeze" in freeze \
                 and now >= freeze["t_freeze"] + NODE_FREEZE_S:
             freeze["launches_at_resume"] = _read_segment(tenants[freeze_pod]["view"])["launches"]
@@ -3257,7 +3294,12 @@ def phase_node(torch, hardware, hv_build, limiter_lib, name, smi):
         chip, inventory = _node_inventory(torch, hardware, provider, url, name, smi)
         tenants = _submit_tenants(url, chip, work, "--tenant", hv_build.cuda_hook_path())
         _node_wait_for_calls(tenants, daemon)
-        t_start, t_end, samples, api_samples, freeze = _node_window(url, provider, tenants)
+        # the TUI's frame of this agent, taken while hi is frozen
+        tui = []
+        t_start, t_end, samples, api_samples, freeze = _node_window(
+            url, provider, tenants, on_freeze=lambda: tui.append(_tui_start(url, work / "shm")))
+        tui_node = _tui_node(_tui_frame(tui[0], "node"), inventory)
+        emit("tui_node", **tui_node)
         final = _node_stop(daemon, tenants)
         pids = {p for s in samples for seg in s.values() for p in seg["pids"]}
         pids |= {l["start"] for f in final.values() for l in f["lines"] if "start" in l}
@@ -3272,6 +3314,8 @@ def phase_node(torch, hardware, hv_build, limiter_lib, name, smi):
     alive = sorted(p for p in pids if Path(f"/proc/{p}").exists())
     if left or alive:
         raise RuntimeError(f"after DELETE: segments {left}, tenant processes {alive}")
+    if not all(tui_node["checks"].values()):
+        raise RuntimeError(f"the TUI's node frame failed its checks: {tui_node}")
     peak_mflops = inventory["peak_bf16_tflops"] * 1e6
     report = _node_report(tenants, t_start, t_end, samples, api_samples, freeze,
                           final, peak_mflops)
@@ -3467,23 +3511,78 @@ def _intercept_probe(torch, fa, hook_lib, limiter_lib, work, peak_mflops):
     return result
 
 
-def _intercept_overhead(hook_lib, limiter_lib, work, peak_mflops):
-    """Part b: tiny launches and the Llama-3-8B forward without and with
-    the hook (uncontended), in four children: plain, hooked, hooked,
-    plain."""
+def _held_child(mode, out, env):
+    """``chip_smoke.py mode out`` started held (an ``out/hold`` file): it sets
+    up, then waits for its turn (``_await_go``); its output to out/child.log."""
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "hold").touch()
+    with open(out / "child.log", "w") as log:
+        return subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), mode, str(out)],
+                                env=env, cwd=str(REPO), stdout=log, stderr=subprocess.STDOUT)
+
+
+def _await_ready(held):
+    """Until every held ``(out, proc)`` is set up; raises if one exits first."""
+    deadline = time.monotonic() + NODE_START_TIMEOUT_S
+    while not all((out / "ready").exists() for out, _ in held):
+        for out, proc in held:
+            if proc.poll() is not None:
+                raise RuntimeError(f"{out.name} exited ({proc.returncode}) while setting up:\n"
+                                   + _tail(out / "child.log") + _tail(out / "tenant.log"))
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"the held children were not set up in time: "
+                               f"{[out.name for out, _ in held]}")
+        time.sleep(0.1)
+
+
+OVERHEAD_ORDER = (False, True, True, False)   # part b's children: hooked or not, in turn
+
+
+def _overhead_children(hook_lib, limiter_lib, work, peak_mflops, runs):
+    """Part b's children ``runs`` (indices into OVERHEAD_ORDER), started held;
+    a hooked one meters into a segment of its own, so no two of them share
+    a worker's windows."""
     import os
+
+    held = []
+    for i in runs:
+        out = work / "overhead" / f"run{i}"
+        env = dict(os.environ)
+        if OVERHEAD_ORDER[i]:
+            shm = _host_segment(limiter_lib, out, [f"run{i}"])[f"run{i}"]
+            env = _hook_env(hook_lib, limiter_lib, shm, peak_mflops)
+        held.append((out, _held_child("--overhead", out, env)))
+    return held
+
+
+def _overhead_runs(held, timeout=600):
+    """Each held overhead child set up, then run to its end one after the
+    other: none times anything while another works.  Their results."""
+    _await_ready(held)
+    runs = []
+    for out, proc in held:
+        (out / "go").touch()
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise RuntimeError(f"{out.name} timed out") from None
+        if proc.returncode != 0:
+            raise RuntimeError(f"--overhead failed (exit {proc.returncode}):\n"
+                               + _tail(out / "child.log"))
+        runs.append(json.loads((out / "overhead.json").read_text()))
+    return runs
+
+
+def _intercept_overhead(runs):
+    """Part b: tiny launches and the Llama-3-8B forward without and with
+    the hook (uncontended), from the four children's ``runs`` in
+    OVERHEAD_ORDER: plain, hooked, hooked, plain."""
     import statistics
 
-    shm = _host_segment(limiter_lib, work / "overhead", ["overhead"])["overhead"]
-    runs = []
-    for hooked in (False, True, True, False):
-        out = work / "overhead" / f"run{len(runs)}"
-        env = _hook_env(hook_lib, limiter_lib, shm, peak_mflops) if hooked else dict(os.environ)
-        _child("--overhead", out, env)
-        run = json.loads((out / "overhead.json").read_text())
+    for i, (run, hooked) in enumerate(zip(runs, OVERHEAD_ORDER)):
         if run["hooked"] != hooked:
-            raise RuntimeError(f"overhead run {len(runs)} hooked={run['hooked']}, not {hooked}")
-        runs.append(run)
+            raise RuntimeError(f"overhead run {i} hooked={run['hooked']}, not {hooked}")
     side = {h: [r for r in runs if r["hooked"] == h] for h in (False, True)}
     tiny = {h: statistics.median(r["tiny_us"] for r in side[h]) for h in side}
     fwd = {h: statistics.median(ms for r in side[h] for ms in r["forward_ms"]) for h in side}
@@ -3500,19 +3599,25 @@ def _intercept_overhead(hook_lib, limiter_lib, work, peak_mflops):
     return result
 
 
-def _intercept_alone(hook_lib, limiter_lib, work, peak_mflops):
-    """Part c: one raw tenant alone under an uncontended segment for
-    INTERCEPT_ALONE_S: its charged device-seconds against its time in
-    calls."""
-    from tensorfusion_tpu_torch.hypervisor import ShmView
-
+def _alone_child(hook_lib, limiter_lib, work, peak_mflops):
+    """Part c's raw tenant under an uncontended segment of its own, started
+    held: its output directory, process and segment."""
     shm = _host_segment(limiter_lib, work / "alone", ["alone"])["alone"]
     out = work / "alone" / "tenant"
-    proc = subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--tenant-raw",
-                             str(out)], env=_hook_env(hook_lib, limiter_lib, shm, peak_mflops),
-                            cwd=str(REPO), stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    return out, _held_child("--tenant-raw", out,
+                            _hook_env(hook_lib, limiter_lib, shm, peak_mflops)), shm
+
+
+def _intercept_alone(out, proc, shm, peak_mflops):
+    """Part c: one raw tenant (``_alone_child``, set up and held) alone for
+    INTERCEPT_ALONE_S once told to go: its charged device-seconds against
+    its time in calls."""
+    from tensorfusion_tpu_torch.hypervisor import ShmView
+
     view = ShmView(shm)
     try:
+        _await_ready([(out, proc)])
+        (out / "go").touch()
         deadline = time.monotonic() + NODE_START_TIMEOUT_S
         while not any("t1" in l for l in _tenant_lines(out)):
             if proc.poll() is not None or time.monotonic() > deadline:
@@ -3688,10 +3793,26 @@ def phase_intercept(torch, fa, hardware, hv_build, limiter_lib, name, smi):
     work.mkdir(parents=True)
     peak_mflops = hardware.peak_rates(name)["bf16"] / 1e6
     hook_lib = hv_build.cuda_hook_path()
-    probe = _intercept_probe(torch, fa, hook_lib, limiter_lib, work, peak_mflops)
-    emit("intercept_probe", **probe)
-    overhead = _intercept_overhead(hook_lib, limiter_lib, work, peak_mflops)
-    alone = _intercept_alone(hook_lib, limiter_lib, work, peak_mflops)
+    # set-up beside set-up, timing alone: part b's first two children set up
+    # while the probe runs, its last two together with part c's tenant; a
+    # held child works on the card only in its turn, and no child sets up
+    # while another times
+    held = _overhead_children(hook_lib, limiter_lib, work, peak_mflops, (0, 1))
+    alone_child = None
+    try:
+        probe = _intercept_probe(torch, fa, hook_lib, limiter_lib, work, peak_mflops)
+        emit("intercept_probe", **probe)
+        runs = _overhead_runs(held)
+        alone_child = _alone_child(hook_lib, limiter_lib, work, peak_mflops)
+        held += _overhead_children(hook_lib, limiter_lib, work, peak_mflops, (2, 3))
+        _await_ready([alone_child[:2]])
+        overhead = _intercept_overhead(runs + _overhead_runs(held[2:]))
+        alone = _intercept_alone(*alone_child, peak_mflops)
+    finally:
+        for _, proc in held + ([alone_child[:2]] if alone_child else []):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     pair = _intercept_pair(hv_build, limiter_lib, work / "pair", peak_mflops,
                            alone["call_ms_median"] / 1e3)
     emit("intercept", overhead=overhead, alone=alone, **pair, peak_mflops=peak_mflops,
@@ -4741,7 +4862,7 @@ def _flash(dev):
     return dev.info(ranks=True)["ranks"]["worker"]["launch_counts"]["flash_attn_fwd"]
 
 
-def _cp_migrate(op, torch, work, procs, remote, agent_b, work_b):
+def _cp_migrate(op, torch, work, url, procs, remote, agent_b, work_b):
     """A running tenant moved by the operator between two node agents.
 
     A pod (h100-sxm, duty 10, QoS low) is bound on node A, this phase's
@@ -4753,7 +4874,9 @@ def _cp_migrate(op, torch, work, procs, remote, agent_b, work_b):
     agent (``--agent``, node CP_MIG_NODE) whose card is the stand-in
     NVML's, named and sized as the H100, with a worker of its own on the
     same H100 (both workers compute on the one card), started held at the
-    phase's start (``agent_b`` on ``work_b``) and joining now.  The pool then opts
+    phase's start (``agent_b`` on ``work_b``) and joining now.  While the
+    tenant calls on A, the TUI's frame of node A's agent (``url``) must name
+    it in its dispatch and profile panes.  The pool then opts
     into compaction with streaming migration, and the operator's defrag
     pass moves the tenant itself: delta rounds from A's worker to B's
     while the tenant runs, freeze, commit, the pod rebound on B and
@@ -4844,6 +4967,10 @@ def _cp_migrate(op, torch, work, procs, remote, agent_b, work_b):
                                      "H100; both workers compute on the one H100"}
         _cp_wait(lambda: calls["n"] >= 2 or calls["error"], "the tenant's calls on A",
                  procs=procs)
+        # the TUI's frame of node A (``url``) while its worker serves the tenant
+        tui = _tui_remote(_tui_frame(_tui_start(url, work / "shm"), "control_plane"), url)
+        emit("tui_control_plane", **tui)
+        checks.update({f"tui_{k}": v for k, v in tui["checks"].items()})
 
         def opt_in(pool):
             cc = pool.spec.compaction
@@ -5518,7 +5645,7 @@ def phase_control_plane(torch, hardware, hv_build, limiter_lib, name, smi):
 
         # a running tenant moved by the operator to a second node agent
         row["migration"], mig_checks, mig_launches = _cp_migrate(
-            op, torch, work, procs, remote, agent_b, work_b)
+            op, torch, work, url, procs, remote, agent_b, work_b)
         checks.update(mig_checks)
         steps["migration"] = time.monotonic()
     except RuntimeError as e:
@@ -5562,6 +5689,218 @@ def phase_control_plane(torch, hardware, hv_build, limiter_lib, name, smi):
             "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
 
 
+# -- the digital twin and the node agent's TUI ------------------------------------
+
+TWIN_SEED = 42                             # every scenario's and campaign's seed
+TWIN_MEDIUM = ("serving-burst-storm", "rolling-pool-upgrade", "thundering-herd-rescale")
+TWIN_HASH_SEED = "0"                       # the child's PYTHONHASHSEED (ROADMAP fault 15)
+TWIN_TIMEOUT_S = 300.0                     # the twin's child, start to exit
+TUI_TIMEOUT_S = 60.0                       # a TUI frame's child, start to exit
+
+
+def _twin_row(r, **extra):
+    """One twin run as the twin line prints it: its digests (16 hex digits),
+    simulated and wall seconds and their ratio, and the invariants it broke."""
+    row = {"name": r.get("scenario") or r.get("campaign"), "ok": r["ok"],
+           "log": r["log_digest"][:16], "sim_s": r["sim_seconds"],
+           "wall_s": r["wall_seconds"],
+           "speedup": r["sim_seconds"] / r["wall_seconds"] if r["wall_seconds"] else None,
+           "broken": {k: v for k, v in r["invariants"].items() if v}, **extra}
+    for key in ("trace_digest", "profile_digest", "ledger_digest"):
+        if key in r:
+            row[key.split("_")[0]] = r[key][:16]
+    return row
+
+
+def twin_main(out: Path) -> int:
+    """``phase_twin``'s child, started with PYTHONHASHSEED=TWIN_HASH_SEED:
+    the port's digital twin (``tensorfusion_tpu_torch.sim``) on this host.
+    Every scenario at ``small`` twice, every campaign at ``small`` with its
+    policies off and on, and TWIN_MEDIUM at ``medium``, all from TWIN_SEED;
+    the runs, the card memory this process held before and after, and the
+    seconds, to out/twin.json."""
+    import os
+
+    out.mkdir(parents=True, exist_ok=True)
+    import torch
+
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    from tensorfusion_tpu_torch.sim import campaign, scenarios
+    # what the scenarios import at first use (the serving engine, the
+    # dispatcher, the migrator's convergence), loaded before any run
+    from tensorfusion_tpu_torch.controllers import defrag  # noqa: F401
+    from tensorfusion_tpu_torch.remoting import dispatch  # noqa: F401
+    from tensorfusion_tpu_torch.serving import engine, runner, spec  # noqa: F401
+
+    import_s = time.perf_counter() - t0
+    small = []
+    for name in sorted(scenarios.SCENARIOS):
+        runs = [scenarios.run_scenario(name, seed=TWIN_SEED, scale="small") for _ in range(2)]
+        small.append([_twin_row(r, run=i + 1) for i, r in enumerate(runs)])
+    campaigns = []
+    for name in sorted(campaign.CAMPAIGNS):
+        base, pol = (campaign.run_campaign(name, seed=TWIN_SEED, scale="small",
+                                           policies=p) for p in (False, True))
+        campaigns.append({
+            "base": _twin_row(base),
+            "policy": _twin_row(pol, decisions=pol["decisions"],
+                                provenance_ok=pol["provenance"]["ok"]),
+            "criteria_failed": campaign.CRITERIA[name](pol, base)})
+    medium = [_twin_row(scenarios.run_scenario(name, seed=TWIN_SEED, scale="medium"))
+              for name in TWIN_MEDIUM]
+    (out / "twin.json").write_text(json.dumps({
+        "hash_seed": os.environ.get("PYTHONHASHSEED"), "import_s": import_s,
+        "memory_allocated": {"before": before, "after": torch.cuda.memory_allocated()},
+        "small": small, "campaigns": campaigns, "medium": medium,
+        "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def phase_twin(smi):
+    """The port's digital twin on the card's host, in a child (``--twin``)
+    started with PYTHONHASHSEED=TWIN_HASH_SEED, so that its digests compare
+    across hosts: each scenario's two runs hold every invariant and give
+    equal log, trace and profile digests, each campaign's policy arm meets
+    its criteria against its baseline with at least one decision and full
+    provenance, the medium runs hold their invariants, and no card memory
+    is allocated.  It launches no kernel: the twin steps the operator's
+    control plane, and its engines run the arithmetic ``FakeRunner``."""
+    import os
+
+    t_phase = time.perf_counter()
+    work = WORK / "twin"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    with open(work / "twin.log", "w") as log:
+        r = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--twin", str(work)],
+                           cwd=str(REPO), stdout=log, stderr=subprocess.STDOUT,
+                           env={**os.environ, "PYTHONHASHSEED": TWIN_HASH_SEED},
+                           timeout=TWIN_TIMEOUT_S)
+    if r.returncode != 0 or not (work / "twin.json").exists():
+        raise RuntimeError(f"the twin failed (exit {r.returncode}):\n"
+                           + _tail(work / "twin.log"))
+    got = json.loads((work / "twin.json").read_text())
+    digests = ("log", "trace", "profile")
+    mem = got["memory_allocated"]
+    checks = {
+        "hash_seed": got["hash_seed"] == TWIN_HASH_SEED,
+        "small_invariants": all(r["ok"] for runs in got["small"] for r in runs),
+        "small_double_run_equal": all([a[k] for k in digests] == [b[k] for k in digests]
+                                      for a, b in got["small"]),
+        "campaign_criteria": all(
+            c["base"]["ok"] and c["policy"]["ok"] and not c["criteria_failed"]
+            and c["policy"]["decisions"] >= 1 and c["policy"]["provenance_ok"]
+            for c in got["campaigns"]),
+        "medium_invariants": all(r["ok"] for r in got["medium"]),
+        "no_card_memory": mem["after"] - mem["before"] == 0,
+    }
+    emit("twin", hash_seed=got["hash_seed"], seed=TWIN_SEED,
+         small=[r for runs in got["small"] for r in runs],
+         campaigns=got["campaigns"], medium=got["medium"], import_s=got["import_s"],
+         memory_allocated_bytes={**mem, "added": mem["after"] - mem["before"]},
+         child_seconds=got["seconds"], checks=checks, nvidia_smi=smi,
+         seconds=time.perf_counter() - t_phase)
+    if not all(checks.values()):
+        raise RuntimeError(f"twin checks failed: {checks}")
+
+
+def _tui_start(url, shm_base):
+    """``python -m tensorfusion_tpu_torch.hypervisor.tui --once`` against the
+    node agent at ``url`` (its API token in the env, where the TUI reads
+    it), its shm inspector on ``shm_base``: the started child."""
+    import os
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "tensorfusion_tpu_torch.hypervisor.tui", "--once", "--url", url,
+         "--shm-base", str(shm_base)], cwd=str(REPO), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "TPF_HYPERVISOR_TOKEN": NODE_TOKEN})
+
+
+def _tui_frame(proc, what):
+    """The frame the TUI child ``proc`` printed; it must exit 0 in time with
+    a frame that reached the agent."""
+    try:
+        out, err = proc.communicate(timeout=TUI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"the TUI's {what} frame timed out") from None
+    if proc.returncode != 0 or "== tpu-fusion hypervisor ==" not in out \
+            or "unreachable" in out:
+        raise RuntimeError(f"the TUI's {what} frame failed (exit {proc.returncode}):\n"
+                           f"{out[-2000:]}{err[-2000:]}")
+    return out
+
+
+def _tui_rows(frame):
+    """The frame's device rows, worker rows (by ns/name: duty, HBM, frozen)
+    and shm segments (by ns/name: flags and their first device's duty)."""
+    lines = frame.split("\n-- shm inspector --\n")
+    rows = lines[0].splitlines()
+    header = next(i for i, r in enumerate(rows) if r.startswith("  CHIP "))
+    devices = []
+    for r in rows[header + 1:]:
+        if not r.strip():
+            break
+        devices.append(r[2:].split()[:2])
+    workers = {}
+    for r in rows:
+        cols = r[2:].split()
+        if len(cols) == 7 and "/" in cols[0] and cols[6] in ("yes", "no"):
+            workers[cols[0]] = {"duty": cols[3], "hbm": cols[4], "frozen": cols[6]}
+    segments = {}
+    for key, flags, duty in re.findall(r"segment (\S+)  \[([A-Z-]+|active)\].*\n\s+dev0 \S+\s+"
+                                       r"duty=\s*([\d.]+)%", lines[-1] if len(lines) > 1 else ""):
+        segments[key] = {"flags": flags, "duty_percent": float(duty)}
+    return devices, workers, segments
+
+
+def _tui_node(frame, inventory):
+    """The node phase's frame, taken while ``hi`` is frozen: the card as
+    NVML reports it, both tenants with their duty and HBM, ``hi`` frozen,
+    and both segments with a duty limit at or above the tenant's contract
+    (NODE_TENANTS).  The limit is the ERL's elastic target: a frozen worker
+    is left out of its step and keeps its last, and ``lo``, hungry alone,
+    is given the frozen tenant's share."""
+    devices, workers, segments = _tui_rows(frame)
+    fields = {"devices": devices, "workers": workers, "segments": segments,
+              "lines": len(frame.splitlines())}
+    fields["checks"] = {
+        "card": devices == [[inventory["chip_id"], inventory["generation"]]],
+        "tenants": sorted(workers) == ["default/hi", "default/lo"],
+        "hi_frozen": workers.get("default/hi", {}).get("frozen") == "yes"
+        and workers.get("default/lo", {}).get("frozen") == "no"
+        and segments.get("default/hi", {}).get("flags") == "FROZEN"
+        and segments.get("default/lo", {}).get("flags") == "active",
+        "segments": sorted(segments) == ["default/hi", "default/lo"] and all(
+            segments[f"default/{pod}"]["duty_percent"] >= duty
+            for pod, duty, _ in NODE_TENANTS),
+    }
+    return fields
+
+
+def _tui_remote(frame, url):
+    """The control plane's frame of node A while its co-hosted worker serves
+    the moved tenant: the dispatch and profile panes, each naming the tenant
+    that the agent's ``/api/v1/dispatch`` shows with the most calls done."""
+    dispatch = _api(url, "/api/v1/dispatch")
+    tenants = {k: t["completed"] for snap in dispatch for k, t in snap["tenants"].items()}
+    tenant = max(tenants, key=tenants.get) if tenants else None
+    panes = {"dispatch": frame.find("== remote worker 0 ["),
+             "profile": frame.find("util=")}
+    text = {name: frame[at:].split("\n\n")[0] if at >= 0 else ""
+            for name, at in panes.items()}
+    fields = {"tenant": tenant, "calls_done": tenants.get(tenant),
+              "pane_lines": {k: len(v.splitlines()) for k, v in text.items()},
+              "lines": len(frame.splitlines())}
+    fields["checks"] = {f"{k}_names_the_tenant": bool(tenant) and bool(v)
+                        and re.search(rf"^\s+{re.escape(tenant)}\s", v, re.M) is not None
+                        for k, v in text.items()}
+    return fields
+
+
 def _memory(torch, phase, t0):
     """The card memory this process holds as ``phase`` starts: what the
     earlier phases left allocated, then what is left once reference cycles
@@ -5603,7 +5942,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     children = {"--tenant": tenant_main, "--tenant-raw": tenant_raw_main,
                 "--probe": probe_main, "--overhead": overhead_main,
-                "--mesh-tenant": mesh_tenant_main}
+                "--mesh-tenant": mesh_tenant_main, "--twin": twin_main}
     if sys.argv[1:2] and sys.argv[1] in children:
         return children[sys.argv[1]](Path(sys.argv[2]))
     from tensorfusion_tpu_torch import (bench_train, hardware, ops, parallel, remoting,
@@ -5628,6 +5967,8 @@ def main() -> int:
     rows = {"flash_attn_fwd": phase_kernels(torch, fa, rates)}
     rows.update(phase_bwd_kernels(torch, fa, rates))
     torch.cuda.empty_cache()
+    _memory(torch, "twin", t0)
+    phase_twin(smi)
     # while this process holds almost nothing: the tenants share the card
     _memory(torch, "node", t0)
     node_launches = phase_node(torch, hardware, hv_build, limiter_lib, name, smi)

@@ -4,6 +4,8 @@
   ``monotonic()`` timebase for deadlines/intervals, ``sleep()``, and
   ``wait()`` on a ``threading.Event``.
 - :class:`WallClock` — production: delegates to :mod:`time`.
+- :class:`SkewedClock` — a wall-skewed view over another clock (the
+  digital twin injects per-replica clock skew through it).
 - a process-wide **default clock** (:func:`default_clock`), swapped by
   tests and simulations through :func:`set_default_clock` /
   :func:`use_clock`.  Components take an explicit ``clock=`` parameter
@@ -65,6 +67,31 @@ class WallClock(Clock):
     def wait(self, event: threading.Event,
              timeout: Optional[float] = None) -> bool:
         return event.wait(timeout)
+
+
+
+class SkewedClock(Clock):
+    """A wall-skewed view over a base clock: ``now()`` is shifted by
+    ``skew_s``, ``monotonic()`` is not (monotonic time never jumps).
+    The twin gives each simulated replica its own skewed view of one
+    :class:`~tensorfusion_tpu_torch.sim.SimClock` to model drifting nodes."""
+
+    def __init__(self, base: Clock, skew_s: float = 0.0):
+        self.base = base
+        self.skew_s = skew_s
+
+    def now(self) -> float:
+        return self.base.now() + self.skew_s
+
+    def monotonic(self) -> float:
+        return self.base.monotonic()
+
+    def sleep(self, seconds: float) -> None:
+        self.base.sleep(seconds)
+
+    def wait(self, event: threading.Event,
+             timeout: Optional[float] = None) -> bool:
+        return self.base.wait(event, timeout)
 
 
 WALL = WallClock()

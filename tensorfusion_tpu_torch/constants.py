@@ -142,6 +142,8 @@ ENV_PEAK_MFLOPS = "TPF_PEAK_MFLOPS"
 ENV_VTPU_ENABLED = "TPF_VTPU"
 
 DEFAULT_HYPERVISOR_PORT = 8000
+#: where the node agent keeps worker segments (its ``--shm-base``)
+DEFAULT_SHM_BASE = "/run/tpu-fusion/shm"
 
 ISOLATION_SHARED = "shared"            # no enforcement, best effort
 ISOLATION_SOFT = "soft"                # shm token buckets + ERL

@@ -47,7 +47,7 @@ import tensorfusion_tpu_torch.shardedstore as port_sharded
 import tensorfusion_tpu_torch.statestore as port_statestore
 import tensorfusion_tpu_torch.store as port_store
 from tensorfusion_tpu import constants as ref_constants
-from tensorfusion_tpu.testing import fresh_library
+from tensorfusion_tpu_torch.testing import fresh_library
 from tensorfusion_tpu_torch import constants
 from tensorfusion_tpu_torch.hypervisor import _build
 

@@ -21,7 +21,7 @@ import pytest
 
 pytest.importorskip("torch")
 
-from tensorfusion_tpu.testing import fresh_library  # noqa: E402
+from tensorfusion_tpu_torch.testing import fresh_library  # noqa: E402
 from tensorfusion_tpu_torch import constants  # noqa: E402
 from tensorfusion_tpu_torch import hypervisor as port  # noqa: E402
 from tensorfusion_tpu_torch.hypervisor import _build  # noqa: E402

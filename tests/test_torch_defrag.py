@@ -771,7 +771,7 @@ def _agent(tmp, name, store_url, pool, provider, limiter):
     """One of the port's node agents joined to the store, with a
     co-hosted ``RemoteVTPUWorker(device="cpu")`` registered on its server
     and its metrics recorder (the topology streaming migration assumes)."""
-    from tensorfusion_tpu.testing import fresh_library
+    from tensorfusion_tpu_torch.testing import fresh_library
     from tensorfusion_tpu_torch.hypervisor.__main__ import HypervisorDaemon, build_parser
     from tensorfusion_tpu_torch.remoting import RemoteVTPUWorker
 

@@ -382,6 +382,64 @@ def test_pool_keys_links_by_quantize(worker):
         pool.close()
 
 
+def test_peer_link_pool_idle_ttl_reaps_under_sim_clock(worker):
+    """The idle-TTL reap on the injectable clock seam, under the port's
+    SimClock: a link idle past the TTL (the port's fixed 60 s) is closed by
+    the next sweep, a link inside it survives."""
+    from tensorfusion_tpu_torch.remoting import fabric
+    from tensorfusion_tpu_torch.sim.clock import SimClock
+
+    assert fabric.PEER_LINK_IDLE_TTL_S == 60.0
+    clk = SimClock()
+    pool = PeerLinkPool(clock=clk)
+    try:
+        l1 = pool.lease(worker.url)
+        l1.device.info()
+        pool.release(l1)                       # parked at t=0
+        clk.advance(59.0)
+        other = pool.lease(worker.url, quantize=True)
+        pool.release(other)                    # sweep: l1 idle 59s <= TTL
+        assert pool.snapshot()["expired"] == 0
+        clk.advance(2.0)                       # l1 now idle 61s > TTL
+        other = pool.lease(worker.url, quantize=True)
+        pool.release(other)                    # sweep reaps l1 only
+        assert pool.snapshot()["expired"] == 1
+        l3 = pool.lease(worker.url)
+        assert l3 is not l1
+        pool.release(l3)
+    finally:
+        pool.close()
+
+
+def test_peer_link_pool_verify_fresh_window_under_sim_clock(worker, monkeypatch):
+    """A link re-leased within the fresh window skips the worker_uid round
+    trip; past the window it verifies again, under the port's SimClock
+    (the window widened to 5 s, as the reference's case sets it)."""
+    from tensorfusion_tpu_torch.remoting import fabric
+    from tensorfusion_tpu_torch.sim.clock import SimClock
+
+    monkeypatch.setattr(fabric, "PEER_LINK_VERIFY_FRESH_S", 5.0)
+    clk = SimClock()
+    pool = PeerLinkPool(clock=clk)
+    try:
+        l1 = pool.lease(worker.url)
+        l1.device.info()
+        pool.release(l1)                       # last used t=0
+        calls = []
+        orig_verify = l1.verify
+        l1.verify = lambda: (calls.append(1) or orig_verify())
+        clk.advance(4.0)                       # inside the window
+        l2 = pool.lease(worker.url)
+        assert l2 is l1 and calls == []
+        pool.release(l2)                       # last used t=4
+        clk.advance(6.0)                       # 6s idle > 5s window
+        l3 = pool.lease(worker.url)
+        assert l3 is l1 and len(calls) == 1
+        pool.release(l3)
+    finally:
+        pool.close()
+
+
 # -- model parallelism ----------------------------------------------------------
 
 

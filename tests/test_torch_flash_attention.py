@@ -165,7 +165,9 @@ def test_port_sources_import_no_jax_and_no_reference_package():
                 "controllers/defrag.py", "server/__init__.py", "server/api.py",
                 "operator.py", "cloudprovider/tpu_vm.py", "policy/__init__.py",
                 "policy/actions.py", "policy/engine.py", "policy/export.py",
-                "policy/ledger.py", "policy/rules.py"):
+                "policy/ledger.py", "policy/rules.py", "sim/__init__.py", "sim/clock.py",
+                "sim/harness.py", "sim/faults.py", "sim/trace.py", "sim/scenarios.py",
+                "sim/campaign.py", "testing.py", "hypervisor/tui.py"):
         assert REPO / "tensorfusion_tpu_torch" / new in _PORT_FILES, new
     # the expander came with the operator's cloud providers
     assert REPO / "tensorfusion_tpu_torch" / "scheduler" / "expander.py" in _PORT_FILES

@@ -25,7 +25,7 @@ import tensorfusion_tpu_torch.hypervisor as port
 from tensorfusion_tpu import constants as ref_constants
 from tensorfusion_tpu.api.types import AutoFreezeRule as RefAutoFreezeRule
 from tensorfusion_tpu.api.types import ERLParameters as RefERLParameters
-from tensorfusion_tpu.testing import MockProviderControl, fresh_library
+from tensorfusion_tpu_torch.testing import MockProviderControl, fresh_library
 from tensorfusion_tpu_torch import constants
 from tensorfusion_tpu_torch.hypervisor import _build
 from tensorfusion_tpu_torch.hypervisor.erl import AutoFreezeRule, ERLParameters

@@ -21,7 +21,7 @@ import types
 import numpy as np
 import pytest
 
-from tensorfusion_tpu.testing import fresh_library
+from tensorfusion_tpu_torch.testing import fresh_library
 
 _NAMES = {
     'AlertEvaluator': ('alert', 'AlertEvaluator'),

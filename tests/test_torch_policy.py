@@ -2,7 +2,7 @@
 reference's.
 
 The reference's own cases (tests/test_policy.py from the ledger to the
-operator's wiring, the policy-endpoint half of its hypervisor case, its
+operator's wiring, its hypervisor case with the TUI's policy pane, its
 tpfpolicy CLI case, and test_observability.py::
 test_resolve_refire_does_not_flap_policy_actuator) run here as one
 parametrised test each, over both packages (``m``).  The reference's CLI
@@ -52,6 +52,7 @@ _NAMES = {
     'default_actuators': ('policy', 'default_actuators'),
     'default_policies': ('policy', 'default_policies'),
     'load_policy_log': ('policy', 'load_policy_log'),
+    'tui': ('hypervisor', 'tui'),
     'parse_line': ('metrics.encoder', 'parse_line'),
     'policy_digest': ('policy', 'policy_digest'),
     'policy_lines': ('policy', 'policy_lines'),
@@ -394,8 +395,8 @@ def test_operator_enable_policy_wires_engine_alerts_actuators(m):
 
 
 def test_hypervisor_policy_endpoint(m):
-    """The policy-endpoint half of the reference's hypervisor case (the
-    TUI pane waits for the TUI's port)."""
+    """The reference's hypervisor case: the policy endpoint, and the TUI's
+    policy pane and view over what it served."""
     clock = fake_clock(m)
     tsdb, ev = _firing(m, clock)
     eng = _engine(m, tsdb, ev,
@@ -411,6 +412,12 @@ def test_hypervisor_policy_endpoint(m):
         assert len(snaps) == 1
         assert snaps[0]["counters"]["decisions_total"] == 1
         assert snaps[0]["ledger"]["decisions"][0]["rule"] == "scale-on-burn"
+        pane = m.tui.render_policy(snaps)
+        assert "scale-on-burn" in pane and "decisions=1" in pane
+        state = m.tui.TuiState()
+        state.update_policy(snaps)
+        assert state.key("o") and state.view == "policy"
+        assert "scale-on-burn" in state.render()
     finally:
         srv.stop()
 

@@ -18,7 +18,7 @@ import pytest
 
 import tensorfusion_tpu.hypervisor as ref
 import tensorfusion_tpu_torch.hypervisor as port
-from tensorfusion_tpu.testing import fresh_library
+from tensorfusion_tpu_torch.testing import fresh_library
 from tensorfusion_tpu_torch import constants, hardware
 from tensorfusion_tpu_torch.hypervisor import _build
 from tensorfusion_tpu_torch.hypervisor.provider_binding import (TPF_ERR_EXHAUSTED,
